@@ -5,13 +5,13 @@ center channel plus two panned tones for the sides), runs the offline
 pipeline, and writes the three discrete channels — the library-level
 equivalent of:
 
-    upmix-tpu song.wav --out-dir out/ --export-mode split
+    upmix song.wav --out-dir out/ --export-mode split
 
 Run from the repo root (or after `pip install -e .`):
 
     python examples/01_offline_upmix.py [workdir]
 
-Runs on whatever JAX backend is available (TPU when attached; CPU
+Runs on whatever JAX backend is available (GPU when attached; CPU
 otherwise — set JAX_PLATFORMS=cpu to force).
 """
 
@@ -22,9 +22,9 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from upmix_tpu.config import UpmixConfig
-from upmix_tpu.io import read_wav, write_wav
-from upmix_tpu.models.offline import Upmixer
+from upmix.config import UpmixConfig
+from upmix.io import read_wav, write_wav
+from upmix.models.offline import Upmixer
 
 workdir = sys.argv[1] if len(sys.argv) > 1 else "."
 os.makedirs(workdir, exist_ok=True)

@@ -19,8 +19,8 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from upmix_tpu.config import UpmixConfig
-from upmix_tpu.models.streaming import StreamingUpmixer
+from upmix.config import UpmixConfig
+from upmix.models.streaming import StreamingUpmixer
 
 # The reference's shipped real-time config: edges 0/500/2000/8000 Hz at
 # 48 kHz, 2048-sample hardware blocks (bela/upmix.cpp:525-528).

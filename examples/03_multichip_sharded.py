@@ -7,12 +7,12 @@ dry-run use), so it runs anywhere:
 
     python examples/03_multichip_sharded.py
 
-On a real TPU slice, drop the two env lines and build the mesh from
+On a multi-GPU host, drop the two env lines and build the mesh from
 jax.devices() — the program is identical; XLA inserts the collectives
 (one nearest-neighbor ppermute halo exchange for the input overlap and
-one for the overlap-add spill) over ICI.
+one for the overlap-add spill) over NVLink.
 
-The same path is one flag at the CLI: `upmix-tpu in.wav --mesh seq=8`
+The same path is one flag at the CLI: `upmix in.wav --mesh seq=8`
 (or `data=2,seq=4`); serving shards with `--serve-stream ...
 --pool-mesh data=D`.
 """
@@ -33,9 +33,9 @@ jax.config.update("jax_platforms", "cpu")
 
 import numpy as np
 
-from upmix_tpu.config import UpmixConfig
-from upmix_tpu.models.offline import upmix_offline
-from upmix_tpu.parallel import ShardedUpmixer, make_mesh
+from upmix.config import UpmixConfig
+from upmix.models.offline import upmix_offline
+from upmix.parallel import ShardedUpmixer, make_mesh
 
 print(f"devices: {jax.device_count()}")
 

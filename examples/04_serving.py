@@ -3,16 +3,14 @@
 Two ways this framework serves at scale beyond one-shot CLI runs:
 
 1. `run_jobs` — the persistent batch job server behind
-   `upmix-tpu - --serve`: JSON jobs in, JSON results out, compiled
+   `upmix - --serve`: JSON jobs in, JSON results out, compiled
    programs reused across jobs (driven here through plain StringIO, no
    subprocess needed).
 2. `make_stream_pool` — many concurrent live streams through ONE
-   launch per hardware block, with per-slot session churn.  On a TPU
-   with an eligible config the factory returns the pallas pool kernel
-   (~19k realtime sessions per v5e chip at B=4096); elsewhere the
-   vmapped XLA engine (~2000 at B=128).  See BASELINE.md.
+   dispatch per hardware block (the stream step vmapped over session
+   slots), with per-slot session churn.
 3. `StreamServer` — the network front end for that pool (behind
-   `upmix-tpu - --serve-stream PORT`): each TCP connection claims a
+   `upmix - --serve-stream PORT`): each TCP connection claims a
    slot and streams fixed-size float32 blocks; the client gets its
    warmup-aligned result back, frame for frame.
 
@@ -28,10 +26,10 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from upmix_tpu.app import run_jobs
-from upmix_tpu.config import UpmixConfig
-from upmix_tpu.io import write_wav
-from upmix_tpu.models import make_stream_pool
+from upmix.app import run_jobs
+from upmix.config import UpmixConfig
+from upmix.io import write_wav
+from upmix.models import make_stream_pool
 
 workdir = sys.argv[1] if len(sys.argv) > 1 else "."
 os.makedirs(workdir, exist_ok=True)
@@ -77,8 +75,8 @@ assert np.abs(np.asarray(C[0])).max() > 0.0
 print("multi-stream pool: slot churn verified (slot 2 re-warming)\n")
 
 # --- 3. live-stream server ---------------------------------------------
-from upmix_tpu.models.streaming import BatchStreamingUpmixer
-from upmix_tpu.serve_stream import StreamServer, stream_client
+from upmix.models.streaming import BatchStreamingUpmixer
+from upmix.serve_stream import StreamServer, stream_client
 
 server_pool = BatchStreamingUpmixer(cfg, HW, n_streams=B)
 with StreamServer(server_pool, lockstep=True) as srv:
@@ -93,7 +91,7 @@ with StreamServer(server_pool, lockstep=True) as srv:
     # Observability: every server answers a metrics query on its own
     # port (and serves Prometheus text over HTTP with
     # metrics_http_port=...; CLI: --metrics-http PORT).
-    from upmix_tpu.serve_stream import fetch_metrics
+    from upmix.serve_stream import fetch_metrics
 
     m = fetch_metrics(*srv.address)
     print(f"metrics: {m['counters']['accepted']} sessions, "
@@ -105,7 +103,7 @@ with StreamServer(server_pool, lockstep=True) as srv:
 # session (engine rows, counters, queued blocks, resume tokens) to one
 # file; a new server parks them until their clients reconnect with
 # StreamSession(token=...) and resend from the acked input position.
-from upmix_tpu.serve_stream import StreamSession
+from upmix.serve_stream import StreamSession
 
 ck = os.path.join(workdir, "sessions.npz")
 srv_a = StreamServer(

@@ -1,9 +1,9 @@
-// upmix_cli — standalone native pipe filter (no Python, no TPU).
+// upmix_cli — standalone native pipe filter (no Python, no accelerator).
 //
 // The deployment artifact for hosts that need the upmixer as a plain
 // binary: raw interleaved float32 stereo on stdin -> processed float32
 // on stdout, identical semantics to the Python CLI's
-// `upmix-tpu - --pipe --engine native` (upmix_tpu/app.py::run_pipe):
+// `upmix - --pipe --engine native` (upmix/app.py::run_pipe):
 // latency-aligned by default (output frame i corresponds to input frame
 // i; len(out) == len(in)), --raw for the live-callback stream.
 //

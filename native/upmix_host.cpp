@@ -1,10 +1,10 @@
-// upmix_host — native streaming host shell for the upmix_tpu framework.
+// upmix_host — native streaming host shell for the upmix framework.
 //
 // C++ equivalent of the reference's real-time engine (bela/upmix.cpp): a
 // block-based stereo->LCR upmixer for low-latency local playback where no
-// TPU is attached.  The DSP semantics intentionally match the framework's
-// JAX streaming path (upmix_tpu/models/streaming.py) and the NumPy oracle
-// (upmix_tpu/oracle/reference.py) so the three implementations are
+// accelerator is attached.  The DSP semantics intentionally match the framework's
+// JAX streaming path (upmix/models/streaming.py) and the NumPy oracle
+// (upmix/oracle/reference.py) so the three implementations are
 // SNR-comparable; tests bit-compare this engine against the oracle.
 //
 // Design differences from the reference implementation (this is not a
@@ -208,7 +208,7 @@ using Fft = FftT<double>;
 using FftF = FftT<float>;
 
 // ---------------------------------------------------------------------------
-// Host-side config math (mirrors upmix_tpu/config.py, which mirrors the
+// Host-side config math (mirrors upmix/config.py, which mirrors the
 // reference's sizing rules).
 // ---------------------------------------------------------------------------
 
@@ -253,7 +253,7 @@ std::vector<float> make_blackman_harris(int n) {
   return w;
 }
 
-// Window kinds mirror upmix_tpu/ops/windows.py (same formulas as the
+// Window kinds mirror upmix/ops/windows.py (same formulas as the
 // NumPy generators, double math cast to float32):
 //   0 = blackman_harris, 1 = sqrt_hann, 2 = hann, 3 = blackman,
 //   4 = hamming, 5 = rect
@@ -301,7 +301,7 @@ std::vector<float> design_wola_synthesis(const std::vector<float>& aw, int hop) 
 }
 
 // Live-fade raised-cosine / hard-zero gain curve
-// (mirrors upmix_tpu/ops/gains.py; reference center_extraction.py:273-332).
+// (mirrors upmix/ops/gains.py; reference center_extraction.py:273-332).
 std::vector<double> band_gain_curve(double f_low, double f_high, double sr,
                                     int fft_size, int xover_mode,  // 0=rc 1=hz
                                     double width_low, double width_high,

@@ -1,12 +1,12 @@
 // upmix_net_client — native network front end for the stream server.
 //
-// Raw interleaved float32 stereo -> ONE session on an upmix-tpu
-// StreamServer (protocol v2; upmix_tpu/serve_stream.py) -> raw float32
+// Raw interleaved float32 stereo -> ONE session on an upmix
+// StreamServer (protocol v2; upmix/serve_stream.py) -> raw float32
 // on stdout.  The embedded-host shell of the serving triangle: a
 // Bela-class device (the reference's whole runtime,
-// /root/reference/bela/upmix.cpp:516-553, is a single stream of
+// bela/upmix.cpp:516-553, is a single stream of
 // hardware blocks exactly like this) or an ffmpeg pipe streams through
-// this binary while the pooled TPU server does the DSP.  No DSP, no
+// this binary while the pooled GPU server does the DSP.  No DSP, no
 // Python, no JAX in-process — the binary is the wire protocol plus the
 // framing, composing exactly like upmix_cli but with the math on the
 // server's pool:

@@ -15,7 +15,7 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from upmix_tpu import native  # noqa: E402
+from upmix import native  # noqa: E402
 
 SR, HW = 48000.0, 2048
 EDGES = [0.0, 500.0, 2000.0, 8000.0]

@@ -2,15 +2,15 @@
 
 The artifact must reproduce the live classes exactly (same program, same
 backend) and survive a metadata round trip — this is the deployment
-subsystem's correctness contract (upmix_tpu/aot.py)."""
+subsystem's correctness contract (upmix/aot.py)."""
 
 import numpy as np
 import pytest
 
-from upmix_tpu import aot
-from upmix_tpu.config import UpmixConfig
-from upmix_tpu.models.offline import Upmixer
-from upmix_tpu.models.streaming import StreamingUpmixer
+from upmix import aot
+from upmix.config import UpmixConfig
+from upmix.models.offline import Upmixer
+from upmix.models.streaming import StreamingUpmixer
 
 from helpers import make_stereo, snr_db
 
@@ -98,218 +98,57 @@ def test_stream_step_artifact_matches_live_engine(tmp_path):
         art.push_block(np.zeros(hw - 1), np.zeros(hw - 1))
 
 
-def test_stream_pool_artifact_interpret_matches_live(tmp_path):
-    # On the CPU backend only the interpret (pure-XLA) form of the pool
-    # kernel can execute, so numeric parity of the artifact is proven in
-    # interpret mode; the Mosaic form is covered by the serialization
-    # test below + the on-chip drive (BASELINE.md).
-    from upmix_tpu.models.streaming import PallasStreamPool
-
-    hw, S = 256, 8
-    cfg = UpmixConfig.streaming([0.0, 400.0, 1600.0], sr=SR, hw_block_size=hw)
-    path = str(tmp_path / "pool.upmixaot")
-    meta = aot.save_stream_pool(
-        path, cfg, hw, S, group=8, platforms=["cpu"], interpret=True
-    )
-    assert meta["type"] == "stream_pool"
-    assert meta["n_streams"] == S
-
+def test_offline_artifact_cross_platform_lowering(tmp_path):
+    # A CPU build host can produce the GPU serving artifact: lowering for
+    # ("cpu", "cuda") records both platforms, and the CPU half runs here
+    # and matches the live 'mm' pipeline.
+    cfg = small_config()
+    n = 4096
+    path = str(tmp_path / "both.upmixaot")
+    meta = aot.save_offline(path, cfg, n, kernel="mm",
+                            platforms=["cpu", "cuda"])
+    assert meta["platforms"] == ["cpu", "cuda"] and meta["kernel"] == "mm"
     art = aot.load(path)
-    live = PallasStreamPool(cfg, hw, n_streams=S, group=8, interpret=True)
-    assert art.warmup_blocks == live.warmup_blocks
-
-    rng = np.random.default_rng(9)
-    n_blocks = live.warmup_blocks + 4
-    blocks = rng.standard_normal((n_blocks, S, 2, hw)).astype(np.float32) * 0.3
-    for t in range(n_blocks):
-        want = live.push_blocks(blocks[t, :, 0], blocks[t, :, 1])
-        got = art.push_blocks(blocks[t, :, 0], blocks[t, :, 1])
-        for w, g in zip(want, got):
-            np.testing.assert_array_equal(np.asarray(g), np.asarray(w))
-
-    # The live class's state conveniences carry over to the artifact:
-    # a reset + restore round trip leaves the next block unchanged.
-    snap = art.snapshot()
-    art.reset_streams([0, 3])
-    art.restore(snap)
-    want = live.push_blocks(blocks[0, :, 0], blocks[0, :, 1])
-    got = art.push_blocks(blocks[0, :, 0], blocks[0, :, 1])
-    for w, g in zip(want, got):
-        np.testing.assert_array_equal(np.asarray(g), np.asarray(w))
+    L, R = make_stereo(n, SR, seed=9)
+    want = Upmixer(cfg, kernel="mm").process_np(L, R)
+    for w, g in zip(want, art.process_np(L, R)):
+        assert snr_db(w, g) > 120.0
 
 
-def test_stream_pool_multihop_artifact_matches_live(tmp_path):
-    # hops=T artifact: the frozen program is the temporal-batch step —
-    # the loaded pool serves T blocks per push_blocks_multi call and
-    # matches the live pool's multi-hop path exactly.
-    from upmix_tpu.models.streaming import PallasStreamPool
-
-    hw, S, T = 256, 8, 2
-    cfg = UpmixConfig.streaming([0.0, 400.0, 1600.0], sr=SR, hw_block_size=hw)
-    path = str(tmp_path / "pool_t2.upmixaot")
-    meta = aot.save_stream_pool(
-        path, cfg, hw, S, group=8, platforms=["cpu"], interpret=True, hops=T
-    )
-    assert meta["hops"] == T
-
-    art = aot.load(path)
-    live = PallasStreamPool(cfg, hw, n_streams=S, group=8, interpret=True)
-
-    rng = np.random.default_rng(11)
-    n_calls = (live.warmup_blocks + 4 + T - 1) // T
-    slabs = rng.standard_normal(
-        (n_calls, 2, S, T * hw)
-    ).astype(np.float32) * 0.3
-    for t in range(n_calls):
-        want = live.push_blocks_multi(slabs[t, 0], slabs[t, 1])
-        got = art.push_blocks_multi(slabs[t, 0], slabs[t, 1])
-        for w, g in zip(want, got):
-            np.testing.assert_array_equal(np.asarray(g), np.asarray(w))
-
-    # A multi-hop artifact has no single-hop program: push_blocks must
-    # refuse with the actionable error, not run a wrong shape.
-    with pytest.raises(ValueError, match="push_blocks_multi"):
-        art.push_blocks(np.zeros((S, hw), np.float32),
-                        np.zeros((S, hw), np.float32))
-    # ... and a mismatched hops width reaches the AOT guard.
-    with pytest.raises(ValueError, match="AOT-loaded"):
-        art.push_blocks_multi(np.zeros((S, 4 * hw), np.float32),
-                              np.zeros((S, 4 * hw), np.float32))
-    # The sustained runner scans the raw step, which artifacts don't carry.
-    with pytest.raises(ValueError, match="AOT-loaded"):
-        art.make_sustained_runner(4, 1, hops=T)
-
-
-def test_stream_pool_single_hop_artifact_rejects_multi(tmp_path):
-    # A single-hop artifact asked for a multi-hop push must hit the
-    # clean AOT guard (regression: _shape_only pools used to lack the
-    # _multi_steps cache and raised AttributeError here).
-    hw, S = 256, 8
-    cfg = UpmixConfig.streaming([0.0, 400.0, 1600.0], sr=SR, hw_block_size=hw)
-    path = str(tmp_path / "pool_t1.upmixaot")
-    aot.save_stream_pool(
-        path, cfg, hw, S, group=8, platforms=["cpu"], interpret=True
-    )
-    art = aot.load(path)
-    with pytest.raises(ValueError, match="AOT-loaded"):
-        art.push_blocks_multi(np.zeros((S, 2 * hw), np.float32),
-                              np.zeros((S, 2 * hw), np.float32))
-
-
-def test_stream_pool_artifact_tpu_serialization(tmp_path):
-    # The default pool artifact lowers the real Mosaic kernel for "tpu"
-    # even from this CPU build host (the StableHLO embeds the versioned
-    # tpu_custom_call payload); it must serialize, load, and reconstruct
-    # the state machinery without compiling anything.
-    hw, S = 256, 16
-    cfg = UpmixConfig.streaming([0.0, 400.0, 1600.0], sr=SR, hw_block_size=hw)
-    path = str(tmp_path / "pool_tpu.upmixaot")
-    meta = aot.save_stream_pool(path, cfg, hw, S)
-    assert meta["platforms"] == ["tpu"]
-    assert meta["interpret"] is False
-
-    art = aot.load(path)  # loads + builds state; no call on CPU
-    assert art.n_streams == S
-    assert art.exported.platforms == ("tpu",)
-    assert jax_state_shapes(art.state) == jax_state_shapes(
-        art._fresh_state()
-    )
-
-
-def jax_state_shapes(state):
-    import jax
-
-    return jax.tree.map(lambda a: (tuple(a.shape), str(a.dtype)), state)
-
-
-def test_pool_plan_shape_only_matches_weighted():
-    # with_weights=False must agree with the full plan on every shape
-    # field while baking no weight matrices (aot.load uses it to avoid
-    # re-deriving tens of MB the artifact already embeds).
-    from upmix_tpu.ops.pallas_pool import make_pool_plan
-
+def test_stream_step_artifact_for_cuda_only_refuses_cpu(tmp_path):
+    # An artifact lowered only for the GPU loads anywhere (metadata and
+    # program bytes) but refuses to run on another platform.
     hw = 256
-    cfg = UpmixConfig.streaming([0.0, 400.0, 1600.0], sr=SR, hw_block_size=hw)
-    for ola in ("time", "spectral"):
-        full = make_pool_plan(cfg, hw, 16, group=8, ola=ola)
-        slim = make_pool_plan(cfg, hw, 16, group=8, ola=ola, with_weights=False)
-        assert full is not None and slim is not None
-        assert (slim.hw, slim.window, slim.group, slim.ola) == (
-            full.hw, full.window, full.group, full.ola
-        )
-        assert len(slim.buckets) == len(full.buckets)
-        for fb, sb in zip(full.buckets, slim.buckets):
-            assert (sb.B, sb.H, sb.P, sb.Kr, sb.kp, sb.Q) == (
-                fb.B, fb.H, fb.P, fb.Kr, fb.kp, fb.Q
-            )
-            if ola == "spectral":
-                assert sb.spec_width == fb.spec_width
-            assert sb.wf_hi is None and sb.wi_hi is None and sb.wq_hi is None
-            np.testing.assert_array_equal(sb.gains, fb.gains)
-
-
-def test_aot_pool_load_skips_weight_bake(tmp_path):
-    hw, S = 256, 8
-    cfg = UpmixConfig.streaming([0.0, 400.0, 1600.0], sr=SR, hw_block_size=hw)
-    path = str(tmp_path / "pool.upmixaot")
-    aot.save_stream_pool(path, cfg, hw, S, group=8, platforms=["cpu"],
-                         interpret=True)
+    cfg = UpmixConfig.streaming([0.0, 500.0], sr=SR, hw_block_size=hw)
+    path = str(tmp_path / "gpu_step.upmixaot")
+    meta = aot.save_stream_step(path, cfg, hw, platforms=["cuda"])
+    assert meta["platforms"] == ["cuda"]
     art = aot.load(path)
-    # Shape-only plan: no duplicate DFT weight matrices pinned in memory.
-    assert all(b.wf_hi is None for b in art.plan.buckets)
+    assert art.exported.platforms == ("cuda",)
+    with pytest.raises(ValueError, match="exported for platforms"):
+        art.push_block(np.zeros(hw), np.zeros(hw))
 
 
-def test_aot_pool_restore_after_json_round_trip(tmp_path):
-    # A snapshot that round-tripped through JSON arrives with LISTS where
-    # the state pytree has tuples and nested lists for arrays.  The live
-    # jit would merely retrace; Exported.call requires an exact pytree
-    # structure match — restore() must canonicalize (review finding:
-    # without it, push_blocks raised AND wiped every stream's state).
+@pytest.mark.parametrize("kernel,want", [("auto", "xla"), ("mm", "mm"),
+                                         ("xla", "xla")])
+def test_offline_artifact_records_resolved_kernel(tmp_path, kernel, want):
+    # kernel="auto" resolves at export time on the builder's backend (the
+    # CPU here picks "xla"); the metadata records the resolved kernel.
+    meta = aot.save_offline(str(tmp_path / "k.upmixaot"), small_config(),
+                            2048, kernel=kernel)
+    assert meta["kernel"] == want
+
+
+def test_load_rejects_unknown_artifact_type(tmp_path):
+    # A file of a type this version does not build (e.g. the former
+    # serving-pool artifacts) is refused with a clear error.
     import json
 
-    from upmix_tpu.models.streaming import PallasStreamPool
-
-    hw, S = 256, 8
-    cfg = UpmixConfig.streaming([0.0, 400.0, 1600.0], sr=SR, hw_block_size=hw)
-    path = str(tmp_path / "pool.upmixaot")
-    aot.save_stream_pool(path, cfg, hw, S, group=8, platforms=["cpu"],
-                         interpret=True)
-    art = aot.load(path)
-    live = PallasStreamPool(cfg, hw, n_streams=S, group=8, interpret=True)
-
-    rng = np.random.default_rng(11)
-    n_blocks = live.warmup_blocks + 2
-    blocks = rng.standard_normal((n_blocks + 1, S, 2, hw)).astype(np.float32)
-    for t in range(n_blocks):
-        live.push_blocks(blocks[t, :, 0], blocks[t, :, 1])
-        art.push_blocks(blocks[t, :, 0], blocks[t, :, 1])
-
-    snap = art.snapshot()
-    snap_json = json.loads(
-        json.dumps(jax_tree_to_lists(snap))
-    )  # tuples -> lists, arrays -> nested lists
-    art.restore(snap_json)
-    want = live.push_blocks(blocks[n_blocks, :, 0], blocks[n_blocks, :, 1])
-    got = art.push_blocks(blocks[n_blocks, :, 0], blocks[n_blocks, :, 1])
-    for w, g in zip(want, got):
-        np.testing.assert_allclose(
-            np.asarray(g), np.asarray(w), rtol=0, atol=1e-6
-        )
-
-
-def jax_tree_to_lists(tree):
-    if isinstance(tree, dict):
-        return {k: jax_tree_to_lists(v) for k, v in tree.items()}
-    if isinstance(tree, (tuple, list)):
-        return [jax_tree_to_lists(v) for v in tree]
-    return np.asarray(tree).tolist()
-
-
-def test_stream_pool_artifact_rejects_ineligible_config(tmp_path):
-    # group must divide n_streams — same bar as the live pool.
-    cfg = UpmixConfig.streaming([0.0, 400.0], sr=SR, hw_block_size=256)
-    with pytest.raises(ValueError, match="not eligible"):
-        aot.save_stream_pool(str(tmp_path / "x.upmixaot"), cfg, 256, 12, group=8)
+    path = tmp_path / "pool.upmixaot"
+    meta = {"format": 1, "type": "stream_pool"}
+    path.write_bytes(b"UPMIXAOT1\n" + json.dumps(meta).encode() + b"\n")
+    with pytest.raises(ValueError, match="unknown artifact type"):
+        aot.load(str(path))
 
 
 def test_read_meta_and_bad_files(tmp_path):
@@ -322,9 +161,9 @@ def test_read_meta_and_bad_files(tmp_path):
 
     bad = tmp_path / "bad.upmixaot"
     bad.write_bytes(b"not an artifact")
-    with pytest.raises(ValueError, match="not an upmix_tpu AOT artifact"):
+    with pytest.raises(ValueError, match="not an upmix AOT artifact"):
         aot.load(str(bad))
-    with pytest.raises(ValueError, match="not an upmix_tpu AOT artifact"):
+    with pytest.raises(ValueError, match="not an upmix AOT artifact"):
         aot.read_meta(str(bad))
 
 
@@ -336,7 +175,7 @@ def test_custom_window_artifact_loads_without_registration(tmp_path):
     # (regression: load() used to raise "unknown window" from
     # BandSpec.__post_init__ even though the exported program has the
     # window baked in).
-    from upmix_tpu.ops import windows as W
+    from upmix.ops import windows as W
 
     name = "test:aot-vec-window"
     n = 512
@@ -373,7 +212,7 @@ def test_callable_window_config_round_trips_sampled(tmp_path):
     # main.py:65) cannot be pickled; config_to_dict persists their
     # per-band-size EVALUATIONS instead, and restore serves those sizes
     # exactly.
-    from upmix_tpu.ops import windows as W
+    from upmix.ops import windows as W
 
     name = "test:aot-callable-window"
 

@@ -4,9 +4,9 @@ encoding (SURVEY.md §4 integration tier; reference main.py:25-165)."""
 import numpy as np
 import pytest
 
-from upmix_tpu.app import band_info_str, export_lcr, load_stereo, run_offline, scale_lcr
-from upmix_tpu.config import UpmixConfig
-from upmix_tpu.io import read_wav, write_wav
+from upmix.app import band_info_str, export_lcr, load_stereo, run_offline, scale_lcr
+from upmix.config import UpmixConfig
+from upmix.io import read_wav, write_wav
 
 from helpers import make_stereo
 

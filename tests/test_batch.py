@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from upmix_tpu.config import UpmixConfig
-from upmix_tpu.models.batch import BatchUpmixer
-from upmix_tpu.oracle import oracle_multiband
-from upmix_tpu.parallel import make_mesh
+from upmix.config import UpmixConfig
+from upmix.models.batch import BatchUpmixer
+from upmix.oracle import oracle_multiband
+from upmix.parallel import make_mesh
 
 from helpers import make_stereo, snr_db
 

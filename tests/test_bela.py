@@ -18,8 +18,8 @@ import subprocess
 import numpy as np
 import pytest
 
-from upmix_tpu.config import UpmixConfig
-from upmix_tpu.oracle.reference import oracle_stream_multiband
+from upmix.config import UpmixConfig
+from upmix.oracle.reference import oracle_stream_multiband
 
 from helpers import make_stereo, snr_db
 
@@ -99,7 +99,7 @@ def test_bela_mock_drops_partial_tail():
 def test_bela_mock_agrees_with_native_stereo_sum():
     # The adapter's downmix must match the library's stereo_sum path
     # bit-for-bit: identical engine, identical mix arithmetic.
-    native = pytest.importorskip("upmix_tpu.native")
+    native = pytest.importorskip("upmix.native")
     if not native.is_available():
         subprocess.run(["make", "-C", NATIVE_DIR], capture_output=True)
     if not native.is_available():  # pragma: no cover

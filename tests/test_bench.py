@@ -2,7 +2,7 @@
 the numerics gate (worst-slice probe SNR vs the float64 oracle — the
 benched program must not ship a fast wrong number).  Runs bench.py as a
 CPU-backend subprocess at a tiny geometry so the suite stays fast; the
-real-chip run uses the same code path at the production geometry.
+GPU run uses the same code path at the production geometry.
 """
 
 import json
@@ -47,6 +47,10 @@ def test_bench_json_contract_and_snr_gate():
     # Numerics gate: probes vs the float64 oracle, on by default.
     assert rec["snr_ok"] is True
     assert rec["snr_db"] > 60.0
+    # Where the number was taken, and at which matmul precision.
+    assert rec["platform"] == "cpu" and rec["device_kind"] == "cpu"
+    assert rec["device_count"] >= 1 and "gpu" not in rec
+    assert rec["matmul_precision"] == "HIGHEST"
 
 
 def test_bench_snr_opt_out():

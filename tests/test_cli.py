@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from upmix_tpu.cli import main, parse_edges
-from upmix_tpu.io import read_wav, write_wav
+from upmix.cli import main, parse_edges
+from upmix.io import read_wav, write_wav
 
 from helpers import make_stereo
 
@@ -90,17 +90,45 @@ def test_cli_pad_granularity_zero_rejected(tmp_path):
 
 
 def test_compilation_cache_helper(tmp_path, monkeypatch):
-    from upmix_tpu.utils.cache import enable_compilation_cache
-
-    # explicit dir wins and is created
-    d = enable_compilation_cache(str(tmp_path / "jc"))
-    assert d == str(tmp_path / "jc")
     import os
 
+    from upmix.utils.cache import enable_compilation_cache
+
+    # explicit dir is used (and created) when the env var is unset
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    d = enable_compilation_cache(str(tmp_path / "jc"))
+    assert d == str(tmp_path / "jc")
     assert os.path.isdir(d)
     # env var is respected when no explicit dir
-    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", "/tmp/envcache")
-    assert enable_compilation_cache() == "/tmp/envcache"
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path / "env"))
+    assert enable_compilation_cache() == str(tmp_path / "env")
+
+
+@pytest.mark.parametrize(
+    "env, arg, want",
+    [
+        ("env", None, "env"),  # env set: used
+        ("env", "arg", "env"),  # env set: an explicit argument does not win
+        (None, "arg", "arg"),  # env unset: the argument
+        (None, None, "default"),  # env unset: the fixed in-checkout path
+    ],
+)
+def test_compilation_cache_dir_rules(tmp_path, monkeypatch, env, arg, want):
+    import os
+
+    from upmix.utils.cache import DEFAULT_CACHE_DIR, compilation_cache_dir
+
+    if env is None:
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    else:
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path / env))
+    got = compilation_cache_dir(None if arg is None else str(tmp_path / arg))
+    if want == "default":
+        assert got == DEFAULT_CACHE_DIR
+        root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        assert got == os.path.join(root, ".jax_cache")
+    else:
+        assert got == str(tmp_path / want)
 
 
 def test_cli_save_aot_offline(tmp_path, capsys):
@@ -128,7 +156,7 @@ def test_cli_save_aot_offline(tmp_path, capsys):
     assert info["saved"] == str(art_path)
     assert info["type"] == "offline"
 
-    from upmix_tpu import aot
+    from upmix import aot
 
     art = aot.load(str(art_path))
     L, R = make_stereo(4096, 16000)
@@ -154,86 +182,39 @@ def test_cli_save_aot_stream(tmp_path, capsys):
         ]
     )
     assert rc == 0
-    from upmix_tpu import aot
+    from upmix import aot
 
     meta = aot.read_meta(str(art_path))
     assert meta["type"] == "stream_step"
     assert meta["hw_block_size"] == 256
 
 
-def test_cli_save_aot_pool(tmp_path, capsys):
-    art_path = tmp_path / "pool.upmixaot"
-    rc = main(
-        [
-            "-",
-            "--save-aot",
-            str(art_path),
-            "--aot-pool",
-            "16",
-            "--sr",
-            "16000",
-            "--band-edges",
-            "0,500",
-            "--hw-block",
-            "256",
-        ]
-    )
-    assert rc == 0
-    out = capsys.readouterr().out.strip().splitlines()[-1]
+@pytest.mark.parametrize("platforms", [None, "cpu"])
+def test_cli_save_aot_platforms(tmp_path, capsys, platforms):
+    # --aot-platforms defaults to the current backend (the CPU here);
+    # an explicit list is recorded as given.
     import json
 
-    info = json.loads(out)
-    assert info["type"] == "stream_pool"
-    # Built on the CPU backend, lowered for the TPU serving host.
-    assert info["platforms"] == ["tpu"]
-
-    from upmix_tpu import aot
-
-    meta = aot.read_meta(str(art_path))
-    assert meta["n_streams"] == 16
-    assert meta["ola"] == "time"
-
-    with pytest.raises(SystemExit, match="exclusive"):
-        main(
-            [
-                "-",
-                "--save-aot",
-                str(art_path),
-                "--aot-pool",
-                "16",
-                "--aot-stream",
-                "--sr",
-                "16000",
-            ]
-        )
+    art_path = tmp_path / "step.upmixaot"
+    args = ["-", "--save-aot", str(art_path), "--aot-stream", "--sr",
+            "16000", "--band-edges", "0,500", "--hw-block", "256"]
+    if platforms is not None:
+        args += ["--aot-platforms", platforms]
+    assert main(args) == 0
+    info = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert info["type"] == "stream_step"
+    assert info["platforms"] == ["cpu"]
 
 
-def test_cli_save_aot_pool_group_flag(tmp_path, capsys):
-    # 24 streams is not a multiple of the default group 16; --pool-group 8
-    # makes the export legal (review finding: there was no CLI knob).
-    art_path = tmp_path / "pool24.upmixaot"
-    args = [
-        "-",
-        "--save-aot",
-        str(art_path),
-        "--aot-pool",
-        "24",
-        "--sr",
-        "16000",
-        "--band-edges",
-        "0,500",
-        "--hw-block",
-        "256",
-    ]
-    with pytest.raises(SystemExit, match="not eligible"):
-        main(args)
-    rc = main(args + ["--pool-group", "8"])
-    assert rc == 0
-    from upmix_tpu import aot
-
-    meta = aot.read_meta(str(art_path))
-    assert meta["n_streams"] == 24
-    assert meta["group"] == 8
+@pytest.mark.parametrize(
+    "flag", ["--aot-pool=16", "--pool-group=8", "--serve-hops=2",
+             "--pool-engine=xla", "--pool-ola=time"]
+)
+def test_cli_rejects_removed_pool_flags(flag):
+    # The serving-pool kernel knobs went with the kernel; argparse must
+    # reject them instead of silently ignoring a stale deployment flag.
+    with pytest.raises(SystemExit):
+        main(["-", "--serve-stream", "0", "--sr", "8000", flag])
 
 
 def test_cli_save_aot_requires_sr_and_dash(tmp_path):
@@ -256,9 +237,9 @@ def test_cli_fetch_metrics(capsys):
     # server's metrics in JSON and Prometheus form through the CLI.
     import json
 
-    from upmix_tpu.config import UpmixConfig
-    from upmix_tpu.models.streaming import BatchStreamingUpmixer
-    from upmix_tpu.serve_stream import StreamServer
+    from upmix.config import UpmixConfig
+    from upmix.models.streaming import BatchStreamingUpmixer
+    from upmix.serve_stream import StreamServer
 
     cfg = UpmixConfig.streaming([0.0, 400.0, 1600.0], sr=8000.0,
                                 hw_block_size=256)
@@ -422,8 +403,8 @@ def test_cli_mesh_batch_mixed_sample_rates(tmp_path, capsys):
 
 
 def test_cli_serve_stream_config_errors_are_clean(tmp_path):
-    # Pool-construction ValueErrors (mesh divisibility, pool
-    # eligibility) must exit as clean CLI errors, not tracebacks.
+    # Pool-construction ValueErrors (mesh divisibility) must exit as
+    # clean CLI errors, not tracebacks.
     import jax
 
     if len(jax.devices()) < 2:

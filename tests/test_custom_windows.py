@@ -2,10 +2,10 @@
 center_extraction.py:240-249 accept ANY callable as window_func).
 
 The framework equivalent is the window registry
-(upmix_tpu.ops.windows.register_window / register_window_vector): the
+(upmix.ops.windows.register_window / register_window_vector): the
 registered NAME flows through UpmixConfig/BandSpec unchanged (hashable,
 static under jit) and every path resolves it through make_window — the
-oracle, the offline kernels, the streaming scan, the pallas pool, and
+oracle, the offline kernels, the streaming scan, the serving pool, and
 the native C++ engine (which receives the exact float32 vectors over
 the concatenated-windows ABI).
 """
@@ -15,12 +15,12 @@ import subprocess
 import numpy as np
 import pytest
 
-from upmix_tpu.config import UpmixConfig
-from upmix_tpu.models.offline import upmix_offline
-from upmix_tpu.models.streaming import StreamingUpmixer, make_stream_pool
-from upmix_tpu.oracle import oracle_multiband
-from upmix_tpu.oracle.reference import oracle_stream_multiband
-from upmix_tpu.ops.windows import (
+from upmix.config import UpmixConfig
+from upmix.models.offline import upmix_offline
+from upmix.models.streaming import StreamingUpmixer, make_stream_pool
+from upmix.oracle import oracle_multiband
+from upmix.oracle.reference import oracle_stream_multiband
+from upmix.ops.windows import (
     custom_window_vector,
     is_known_window,
     make_window,
@@ -81,7 +81,7 @@ def test_restore_window_conflict_detection():
     # restore_window keeps a MATCHING live registration but must refuse
     # a same-name registration with different coefficients (otherwise
     # the oracle/native paths silently check against the wrong window).
-    from upmix_tpu.ops import windows as W
+    from upmix.ops import windows as W
 
     rng = np.random.default_rng(7)
     name, vec = _register(rng, "restore")
@@ -112,7 +112,7 @@ def test_restore_window_resample_divergence_detected():
     # raw vector length yet resample differently at the sizes the
     # restoring config actually uses — check_sizes must catch that
     # (round-5 review finding: the N=len(coeffs) check alone passes it).
-    from upmix_tpu.ops import windows as W
+    from upmix.ops import windows as W
 
     rng = np.random.default_rng(11)
     vec = _rand_window(rng, 777)
@@ -140,8 +140,8 @@ def test_config_from_dict_checks_band_sizes(tmp_path):
     # config_from_dict passes the config's band block sizes as
     # check_sizes, so a resample-divergent live registration fails the
     # artifact load instead of silently serving the wrong window.
-    from upmix_tpu import aot
-    from upmix_tpu.ops import windows as W
+    from upmix import aot
+    from upmix.ops import windows as W
 
     rng = np.random.default_rng(13)
     name, vec = _register(rng, "cfgdict")
@@ -224,9 +224,8 @@ def test_fuzz_custom_window_streaming_and_pool():
     assert snr_db(ref_l, got_l) > 60.0
     assert snr_db(ref_r, got_r) > 60.0
 
-    # Pallas pool (interpret mode on the CPU backend): stream 0 of a
-    # tiny pool must match the same oracle.
-    pool = make_stream_pool(cfg, hw, 8, engine="pallas", group=8)
+    # Serving pool: stream 0 of a tiny pool must match the same oracle.
+    pool = make_stream_pool(cfg, hw, 8)
     n = len(L32)
     outC = np.zeros(n, np.float32)
     outLs = np.zeros(n, np.float32)
@@ -246,7 +245,7 @@ def test_fuzz_custom_window_streaming_and_pool():
 
 
 def test_fuzz_custom_window_native():
-    native = pytest.importorskip("upmix_tpu.native")
+    native = pytest.importorskip("upmix.native")
     if not native.is_available():
         import os
 
@@ -280,7 +279,7 @@ def test_fuzz_custom_window_native():
 
 
 def test_native_rejects_unknown_window():
-    native = pytest.importorskip("upmix_tpu.native")
+    native = pytest.importorskip("upmix.native")
     if not native.is_available():
         pytest.skip("native lib unavailable")
     with pytest.raises(ValueError, match="unknown window"):
@@ -293,8 +292,8 @@ def test_native_rejects_unknown_window():
 
 
 def test_cli_window_file(tmp_path):
-    from upmix_tpu.cli import load_window_file, main
-    from upmix_tpu.io import read_wav, write_wav
+    from upmix.cli import load_window_file, main
+    from upmix.io import read_wav, write_wav
 
     rng = np.random.default_rng(99)
     vec = _rand_window(rng, 321)

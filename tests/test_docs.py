@@ -19,7 +19,7 @@ def test_parity_md_references_exist():
     missing = [w for w in wanted if w not in corpus]
     assert not missing, f"PARITY.md references missing tests: {missing}"
     # every `xxx.py` module path mentioned must exist
-    for mod in set(re.findall(r"`((?:upmix_tpu|native)/[\w/]+\.(?:py|cpp))", text)):
+    for mod in set(re.findall(r"`((?:upmix|native)/[\w/]+\.(?:py|cpp))", text)):
         assert os.path.exists(os.path.join(ROOT, mod)), f"PARITY.md references missing file {mod}"
 
 
@@ -32,7 +32,7 @@ def test_parity_covers_all_package_modules():
         + open(os.path.join(ROOT, "README.md")).read()
     )
     missing = []
-    for dirpath, _dirs, files in os.walk(os.path.join(ROOT, "upmix_tpu")):
+    for dirpath, _dirs, files in os.walk(os.path.join(ROOT, "upmix")):
         for fn in files:
             if not fn.endswith(".py") or fn == "__init__.py":
                 continue
@@ -41,16 +41,6 @@ def test_parity_covers_all_package_modules():
             if base not in docs and rel not in docs:
                 missing.append(rel)
     assert not missing, f"modules undocumented in PARITY/DESIGN/README: {missing}"
-
-
-def test_baseline_md_script_references_exist():
-    # Every scripts/*.py evidence pointer in BASELINE.md must exist (the
-    # measured-results table must stay reproducible).
-    text = open(os.path.join(ROOT, "BASELINE.md")).read()
-    for mod in set(re.findall(r"scripts/[\w]+\.(?:py|sh)", text)):
-        assert os.path.exists(os.path.join(ROOT, mod)), (
-            f"BASELINE.md references missing {mod}"
-        )
 
 
 def test_scripts_parse():

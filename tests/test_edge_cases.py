@@ -5,10 +5,10 @@ invariants on the streaming engine."""
 import numpy as np
 import pytest
 
-from upmix_tpu.config import MAX_BANDS_STREAM, UpmixConfig
-from upmix_tpu.models.offline import Upmixer, upmix_offline
-from upmix_tpu.models.streaming import StreamingUpmixer
-from upmix_tpu.oracle import oracle_multiband
+from upmix.config import MAX_BANDS_STREAM, UpmixConfig
+from upmix.models.offline import Upmixer, upmix_offline
+from upmix.models.streaming import StreamingUpmixer
+from upmix.oracle import oracle_multiband
 
 from helpers import make_stereo, snr_db
 
@@ -35,7 +35,7 @@ def test_nondivisible_overlap_long_input_routes_to_whole_file():
     # Above the chunk threshold the mm kernel normally runs the chunked
     # scan; non-divisible overlaps must transparently fall back to the
     # whole-file gather program instead of crashing.
-    from upmix_tpu.models.offline import build_offline_chunked_fn, build_offline_fn
+    from upmix.models.offline import build_offline_chunked_fn, build_offline_fn
 
     cfg = UpmixConfig.make([0.0, 400.0], sr=8000.0, max_block_size=256, overlap=0.6)
     n = 2**18 + 123
@@ -87,7 +87,7 @@ def test_streaming_silence_and_mono():
 
 
 def test_native_create_destroy_loop():
-    native = pytest.importorskip("upmix_tpu.native")
+    native = pytest.importorskip("upmix.native")
     if not native.is_available():
         pytest.skip("native lib not built")
     for _ in range(50):
@@ -164,7 +164,7 @@ def test_non_power_of_two_max_block_size():
 
 
 def test_non_power_of_two_long_input_routes_to_whole_file():
-    from upmix_tpu.models.offline import build_offline_chunked_fn, build_offline_fn
+    from upmix.models.offline import build_offline_chunked_fn, build_offline_fn
 
     cfg = UpmixConfig.make(
         [0.0, 400.0], sr=8000.0, max_block_size=3000, xover_mode="raised_cosine"
@@ -179,7 +179,7 @@ def test_non_power_of_two_long_input_routes_to_whole_file():
 
 
 def test_chunked_fn_rejects_foreign_kernel():
-    from upmix_tpu.models.offline import build_offline_chunked_fn
+    from upmix.models.offline import build_offline_chunked_fn
 
     cfg = UpmixConfig.make([0.0, 400.0], sr=8000.0, max_block_size=256)
     with pytest.raises(ValueError, match="kernel"):

@@ -7,10 +7,10 @@ import pytest
 
 import jax.numpy as jnp
 
-from upmix_tpu.config import UpmixConfig
-from upmix_tpu.models.offline import resolve_kernel, upmix_offline
-from upmix_tpu.oracle import oracle_multiband
-from upmix_tpu.ops.fftmm import (
+from upmix.config import UpmixConfig
+from upmix.models.offline import resolve_kernel, upmix_offline
+from upmix.oracle import oracle_multiband
+from upmix.ops.fftmm import (
     bin_of,
     conj_mirror,
     fft_mm,
@@ -123,7 +123,7 @@ def test_mm_matches_xla_kernel():
 
 
 def test_banded_plan_and_transforms():
-    from upmix_tpu.ops.fftmm import (
+    from upmix.ops.fftmm import (
         conj_mirror_banded,
         fft_banded,
         ifft_banded,
@@ -169,14 +169,14 @@ def test_banded_plan_and_transforms():
 
 
 def test_banded_full_support_degenerates_to_full():
-    from upmix_tpu.ops.fftmm import make_banded_plan
+    from upmix.ops.fftmm import make_banded_plan
 
     bp = make_banded_plan(256, 0, 128)
     assert bp.is_full
 
 
 def test_chunked_scan_parity_vs_oracle():
-    from upmix_tpu.models.offline import build_offline_chunked_fn
+    from upmix.models.offline import build_offline_chunked_fn
 
     import jax
 
@@ -193,7 +193,7 @@ def test_chunked_scan_parity_vs_oracle():
 
 
 def test_chunked_matches_whole_file():
-    from upmix_tpu.models.offline import build_offline_chunked_fn, build_offline_fn
+    from upmix.models.offline import build_offline_chunked_fn, build_offline_fn
 
     import jax
 
@@ -212,7 +212,7 @@ def test_tiny_chunk_rounded_up_to_block_lcm():
     # guarantees chunk >= halo (max block > max block - hop).
     import jax
 
-    from upmix_tpu.models.offline import build_offline_chunked_fn
+    from upmix.models.offline import build_offline_chunked_fn
 
     cfg = UpmixConfig.make([0.0, 400.0], sr=8000.0, max_block_size=512)
     n = 4096
@@ -224,60 +224,12 @@ def test_tiny_chunk_rounded_up_to_block_lcm():
         assert snr_db(r, np.asarray(g)) > 60.0
 
 
-def test_pallas_fused_bucket_matches_fold():
-    # Fused pallas engine (interpret mode on CPU) vs the XLA bucket fold.
-    import jax
-
-    from upmix_tpu.models.offline import _bucket_fold_mm, _plan_buckets
-    from upmix_tpu.ops.dftmm import make_direct_plan
-    from upmix_tpu.ops.pallas_upmix import fused_bucket_lcr, make_fused_plan
-
-    cfg = UpmixConfig.make([0.0, 400.0, 1600.0], sr=8000.0, max_block_size=512)
-    p = _plan_buckets(cfg, 4096)[0]
-    B, H = p.block_size, p.hop_size
-    K = B // H
-    chunk = 2048
-    nz = np.nonzero(p.gains.max(axis=0))[0]
-    lo, hi = int(nz[0]), int(nz[-1])
-    dplan = make_direct_plan(B, lo, hi, p.analysis_window, p.synthesis_window)
-    fp = make_fused_plan(
-        B, H, chunk, dplan.w_fwd, dplan.w_inv, p.gains[:, lo : hi + 1], tile_samples=512
-    )
-    assert fp.n_tiles > 1  # exercises the cross-tile spill carry
-    rng = np.random.default_rng(0)
-    x = rng.standard_normal((2, chunk + B - H)).astype(np.float32)
-    main, spill = fused_bucket_lcr(jnp.asarray(x), fp, interpret=True)
-    F = chunk // H
-    ref = _bucket_fold_mm(p, jnp.asarray(x[:, : (F + K - 1) * H]), F)
-    assert snr_db(np.asarray(ref[:, :chunk]), np.asarray(main)) > 100.0
-    assert snr_db(np.asarray(ref[:, chunk:]), np.asarray(spill)) > 100.0
-
-
-def test_chunked_with_pallas_parity_vs_oracle():
-    import jax
-
-    from upmix_tpu.models.offline import build_offline_chunked_fn
-
-    cfg = UpmixConfig.make([0.0, 400.0, 1600.0], sr=8000.0, max_block_size=512)
-    n = 9000
-    L, R = make_stereo(n, cfg.sr, seed=5)
-    L32, R32 = L.astype(np.float32), R.astype(np.float32)
-    ref = oracle_multiband(L32, R32, cfg)
-    fn = jax.jit(
-        build_offline_chunked_fn(cfg, n, kernel="mm", chunk=2048, use_pallas=True)
-    )
-    got = fn(jnp.asarray(L32), jnp.asarray(R32))
-    for name, r, g in zip("C Ls Rs".split(), ref, got):
-        s = snr_db(r, np.asarray(g))
-        assert s > 60.0, f"{name}: {s:.1f} dB"
-
-
 def test_chunked_rounds_chunk_to_block_lcm():
     # A chunk that is a multiple of every hop but not every block must be
     # rounded up so grouped framing stays valid (e.g. 50% overlap, K=2).
     import jax
 
-    from upmix_tpu.models.offline import build_offline_chunked_fn
+    from upmix.models.offline import build_offline_chunked_fn
 
     cfg = UpmixConfig.make(
         [0.0, 400.0], sr=8000.0, max_block_size=512, overlap=0.5
@@ -291,295 +243,88 @@ def test_chunked_rounds_chunk_to_block_lcm():
         assert snr_db(r, np.asarray(g)) > 60.0
 
 
-def test_chunked_with_omnibus_parity_vs_oracle():
+# The chunked scan (models/offline.py build_offline_chunked_fn) runs every
+# bucket through the grouped-framing matmul fold; each case holds the
+# oracle bar on all three channels and matches the whole-file 'mm'
+# program.  Cases cover chunk sizes (incl. a chunk smaller than the big
+# bucket's hop), 50% overlap, hard-zero crossovers and the 8-band limit.
+_SCAN_CASES = {
+    "chunk1024": dict(edges=[0.0, 400.0, 1600.0], chunk=1024),
+    "chunk2048": dict(edges=[0.0, 100.0, 400.0, 1600.0], chunk=2048),
+    "chunk4096_one_segment": dict(edges=[0.0, 400.0, 1600.0], chunk=16384),
+    "overlap50": dict(edges=[0.0, 100.0, 400.0, 1600.0], overlap=0.5,
+                      chunk=1024),
+    "overlap50_hop_exceeds_chunk": dict(edges=[0.0, 2000.0], overlap=0.5,
+                                        chunk=512),
+    "hard_zero": dict(edges=[0.0, 100.0, 400.0, 1600.0],
+                      xover_mode="hard_zero", chunk=2048),
+    "8band": dict(edges=[0.0, 60.0, 120.0, 250.0, 500.0, 1000.0, 2000.0,
+                         3000.0], max_block=1024, chunk=2048),
+    "hann_window": dict(edges=[0.0, 400.0, 1600.0], window="hann",
+                        chunk=2048),
+    "analysis_synthesis": dict(edges=[0.0, 400.0, 1600.0],
+                               synthesis="analysis", bin_rounding="cpp",
+                               chunk=2048),
+    "max_block_1024": dict(edges=[0.0, 100.0, 400.0, 1600.0],
+                           max_block=1024, chunk=4096),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_SCAN_CASES))
+def test_chunked_scan_cases_vs_oracle(case):
     import jax
 
-    from upmix_tpu.models.offline import build_offline_chunked_fn
+    from upmix.models.offline import build_offline_chunked_fn, build_offline_fn
 
-    cfg = UpmixConfig.make([0.0, 100.0, 400.0, 1600.0], sr=8000.0, max_block_size=512)
+    kw = dict(_SCAN_CASES[case])
+    chunk = kw.pop("chunk")
+    cfg = UpmixConfig.make(
+        kw.pop("edges"), sr=8000.0, max_block_size=kw.pop("max_block", 512),
+        **kw,
+    )
     n = 9000
-    L, R = make_stereo(n, cfg.sr, seed=8)
+    L, R = make_stereo(n, cfg.sr, seed=5)
     L32, R32 = L.astype(np.float32), R.astype(np.float32)
     ref = oracle_multiband(L32, R32, cfg)
-    fn = jax.jit(
-        build_offline_chunked_fn(
-            cfg, n, kernel="mm", chunk=2048, use_pallas=True, use_omnibus=True
-        )
-    )
-    got = fn(jnp.asarray(L32), jnp.asarray(R32))
-    for name, r, g in zip("C Ls Rs".split(), ref, got):
+    args = (jnp.asarray(L32), jnp.asarray(R32))
+    got = jax.jit(build_offline_chunked_fn(cfg, n, kernel="mm", chunk=chunk))(*args)
+    whole = jax.jit(build_offline_fn(cfg, n, kernel="mm", chunk=0))(*args)
+    for name, r, g, w in zip("C Ls Rs".split(), ref, got, whole):
         s = snr_db(r, np.asarray(g))
-        assert s > 60.0, f"{name}: {s:.1f} dB"
+        assert s > 60.0, f"{case} {name}: {s:.1f} dB"
+        assert snr_db(np.asarray(w), np.asarray(g)) > 100.0, f"{case} {name}"
 
 
-def test_omnibus_plan_classification():
-    from upmix_tpu.models.offline import _plan_buckets
-    from upmix_tpu.ops.pallas_omnibus import make_omnibus_plan
+@pytest.mark.parametrize(
+    "edges,overlap",
+    [([0.0, 400.0, 1600.0], 0.75), ([0.0, 2000.0], 0.5),
+     ([0.0, 100.0, 400.0, 1600.0], 0.75)],
+)
+def test_bucket_fold_matches_xla_bucket(edges, overlap):
+    # The scan body's per-bucket matmul fold against the jnp.fft bucket
+    # over the same frames (both whole-signal, trimmed to n).
+    from upmix.models.offline import _bucket_lcr, _bucket_lcr_mm, _plan_buckets
 
-    cfg = UpmixConfig.make([0.0, 30.0, 120.0, 480.0, 1920.0, 7680.0], sr=44100.0)
-    plans = _plan_buckets(cfg, 2**17)
-    op, leftover = make_omnibus_plan(plans, 2**17)
-    kinds = {s.B: type(s).__name__ for s in op.subs}
-    # Round 2: every bucket rides the one launch — narrow buckets direct,
-    # medium/wide as batched block-diagonal 2-stage, 65536 via multi-view
-    # lookahead frames (tile stays at 16384, halo covers the big block).
-    assert kinds[65536] == "_TwoStageBdSub"
-    assert kinds[16384] == "_TwoStageBdSub"
-    assert kinds[4096] == "_TwoStageBdSub"
-    assert kinds[1024] == "_DirectSub"
-    assert kinds[256] == "_DirectSub"
-    assert leftover == []
-    assert op.tile == 16384 and op.halo == 49152 and op.n_views == 4
-    # Round-1 classification still reachable via the compat flags.
-    op1, leftover1 = make_omnibus_plan(
-        plans, 2**17, include_medium=False, include_big=False
-    )
-    assert sorted(p.block_size for p in leftover1) == [4096, 65536]
-    assert op1.tile == 16384 and op1.halo == 12288
-
-    # Stage-1 row restriction: the single-column 65536 bucket keeps only
-    # the k1 rows that can carry a kept bin.
-    big = next(s for s in op.subs if s.B == 65536)
-    assert big.R < big.n1 and big.R % 8 == 0
-
-
-def test_omnibus_big_hop_grows_tile():
-    # overlap 0.5 halves the hop count but pushes the 65536 bucket's hop
-    # (32768) past the 16384 tile cap; round 2 dropped that bucket to a
-    # separate XLA chain, which ate the entire 2x frame-count win.  The
-    # tile must GROW to the big hop instead, keeping every bucket in the
-    # one omnibus launch.
-    from upmix_tpu.models.offline import _plan_buckets
-    from upmix_tpu.ops.pallas_omnibus import make_omnibus_plan
-
-    cfg = UpmixConfig.make(
-        [0.0, 30.0, 120.0, 480.0, 1920.0, 7680.0], sr=44100.0, overlap=0.5
-    )
-    plans = _plan_buckets(cfg, 2**18)
-    op, leftover = make_omnibus_plan(plans, 2**18)
-    assert leftover == []
-    assert op.tile == 32768 and op.halo == 32768 and op.n_views == 2
-    kinds = {s.B: type(s).__name__ for s in op.subs}
-    assert kinds[65536] == "_TwoStageBdSub"
-    # Small-bucket kron waste stays bounded: M*B <= 16384 still holds.
-    for s in op.subs:
-        if type(s).__name__ == "_TwoStageBdSub" and s.B <= 16384:
-            assert s.M * s.B <= 16384
-
-
-def test_omnibus_grown_tile_parity():
-    # Numerical parity of the grown-tile geometry at miniature scale: the
-    # 512 bucket at overlap 0.5 has hop 256 > tile_cap 128, so the tile
-    # grows to 256 and the bucket folds through one lookahead view.
-    from upmix_tpu.models.offline import _bucket_fold_mm, _plan_buckets
-    from upmix_tpu.ops.pallas_omnibus import make_omnibus_plan, omnibus_lcr
-
-    cfg = UpmixConfig.make(
-        [0.0, 2000.0], sr=8000.0, max_block_size=512, overlap=0.5
-    )
-    chunk = 1024
-    plans = _plan_buckets(cfg, chunk)
-    assert sorted(p.block_size for p in plans) == [128, 512]
-    op, leftover = make_omnibus_plan(plans, chunk, tile_cap=128, min_tile=0)
-    assert leftover == []
-    assert op.tile == 256 and op.halo == 256 and op.n_views == 2
-    big = next(s for s in op.subs if s.B == 512)
-    assert type(big).__name__ == "_TwoStageBdSub" and big.M == 1
-
-    rng = np.random.default_rng(11)
-    x = rng.standard_normal((2, chunk + op.halo)).astype(np.float32)
-    main, spill = omnibus_lcr(jnp.asarray(x), op, interpret=True)
-
-    ref = None
-    for p in plans:
-        K = p.block_size // p.hop_size
-        F = chunk // p.hop_size
-        T = (F + K - 1) * p.hop_size
-        contrib = np.asarray(_bucket_fold_mm(p, jnp.asarray(x[:, :T]), F))
-        contrib = np.pad(contrib, ((0, 0), (0, chunk + op.halo - T)))
-        ref = contrib if ref is None else ref + contrib
-    got = np.concatenate([np.asarray(main), np.asarray(spill)], axis=1)
-    assert snr_db(ref, got) > 80.0
-
-
-def test_omnibus_dot_knob_parity():
-    # The exact-rewrite knobs (_DOT_PAIRED: hi/lo weight halves ride one
-    # taller/wider MXU invocation; _DOT_PADN: tiny stage-2 dots zero-
-    # padded to native lane width) must reproduce the default kernel to
-    # float32 tolerance in interpret mode.
-    import upmix_tpu.ops.pallas_omnibus as pom
-    from upmix_tpu.models.offline import _plan_buckets
-    from upmix_tpu.ops.pallas_omnibus import make_omnibus_plan, omnibus_lcr
-
-    cfg = UpmixConfig.make(
-        [0.0, 100.0, 400.0, 1600.0], sr=8000.0, max_block_size=512
-    )
-    chunk = 2048
-    plans = _plan_buckets(cfg, chunk)
-    base, _ = make_omnibus_plan(plans, chunk, min_tile=0, direct_weight_limit=0)
+    cfg = UpmixConfig.make(edges, sr=8000.0, max_block_size=512,
+                           overlap=overlap)
+    n = 5000
     rng = np.random.default_rng(3)
-    x = jnp.asarray(
-        rng.standard_normal((2, chunk + (base.n_views - 1) * base.tile)),
-        jnp.float32,
-    )
-    ref = np.asarray(omnibus_lcr(x, base, interpret=True)[0])
-    # _LANE_STACK defaults ON; check the OFF (per-start loop) state too.
-    for knob, value in (
-        ("_DOT_PAIRED", True),
-        ("_DOT_PADN", True),
-        ("_LANE_STACK", False),
-    ):
-        saved = getattr(pom, knob)
-        setattr(pom, knob, value)
-        try:
-            plan, lo = make_omnibus_plan(
-                plans, chunk, min_tile=0, direct_weight_limit=0
-            )
-            assert not lo
-            out = np.asarray(omnibus_lcr(x, plan, interpret=True)[0])
-        finally:
-            setattr(pom, knob, saved)
-        rel = np.abs(ref - out).max() / (np.abs(ref).max() + 1e-12)
-        assert rel < 1e-5, f"{knob}={value}: rel {rel:.2e}"
+    L = jnp.asarray(rng.standard_normal(n), jnp.float32)
+    R = jnp.asarray(rng.standard_normal(n), jnp.float32)
+    for p in _plan_buckets(cfg, n):
+        want = np.asarray(_bucket_lcr(p, L, R, n))
+        got = np.asarray(_bucket_lcr_mm(p, L, R, n))
+        assert snr_db(want, got) > 100.0, f"bucket {p.block_size}"
 
 
-def test_omnibus_lane_stack_plan_invariants():
-    # Lane-stacked subs (default on): multi-start BD subs must carry
-    # S-fold-tiled elementwise constants and permuted block-diagonal
-    # stage-2/stage-B weights; single-start subs stay untouched.
-    from upmix_tpu.models.offline import _plan_buckets
-    from upmix_tpu.ops.pallas_omnibus import _TwoStageBdSub, make_omnibus_plan
-
-    cfg = UpmixConfig.make(
-        [0.0, 30.0, 120.0, 480.0, 1920.0, 7680.0], sr=44100.0
-    )
-    plans = _plan_buckets(cfg, 2**18)
-    op, leftover = make_omnibus_plan(plans, 2**18)
-    assert leftover == []
-    bd = {s.B: s for s in op.subs if isinstance(s, _TwoStageBdSub)}
-    big = bd[65536]
-    assert big.lane_stack == 1 and len(big.starts) == 1
-    for B in (16384, 4096):
-        s = bd[B]
-        S = s.lane_stack
-        assert S == len(s.starts) > 1
-        rows_t, rows = s.M * s.n1, s.M * s.R
-        C = s.gains_rep.shape[2] // S
-        # Constants tiled S-fold on lanes; weights block-diagonal.
-        assert s.aw2.shape == (rows_t, S * 2 * s.n2)
-        assert s.sw3.shape == (rows_t, S * 3 * s.n2)
-        assert s.twr2.shape == (rows, S * 2 * s.n2)
-        assert s.d2b_hi.shape == (S * 2 * s.n2, S * 4 * C)
-        assert s.e2b_hi.shape == (3 * S * C, S * 6 * s.n2)
-        # Stage-1/inverse weights are NOT stacked (start-independent).
-        assert s.w1s_hi.shape == (2 * rows, rows_t)
-        assert s.w1i_hi.shape == (rows_t, 2 * rows)
-        # The d2 block-diagonal's quantity-major columns: each start's
-        # block lands at [o*S*C + s*C, ...] and rows outside the start's
-        # lane block are zero.
-        d2 = np.asarray(s.d2b_hi, np.float32)
-        for si in range(S):
-            other = np.delete(
-                d2[:, si * C : si * C + C],  # quantity 0, start si cols
-                np.s_[si * 2 * s.n2 : (si + 1) * 2 * s.n2],
-                axis=0,
-            )
-            assert np.abs(other).max() == 0.0
-
-
-def test_omnibus_bigblock_multiview_parity():
-    # A bucket whose BLOCK exceeds the omnibus tile rides extra lookahead
-    # input views (round 2); check the multi-view fold against the plain
-    # grouped-framing path at tiny sizes (tile_cap=128 makes the 512
-    # bucket "big": halo 384 = 3 extra views).
-    from upmix_tpu.models.offline import _bucket_fold_mm, _plan_buckets
-    from upmix_tpu.ops.pallas_omnibus import make_omnibus_plan, omnibus_lcr
-
-    cfg = UpmixConfig.make([0.0, 2000.0], sr=8000.0, max_block_size=512)
-    chunk = 1024
-    plans = _plan_buckets(cfg, chunk)
-    assert sorted(p.block_size for p in plans) == [128, 512]
-    op, leftover = make_omnibus_plan(plans, chunk, tile_cap=128, min_tile=0)
-    assert leftover == []
-    assert op.tile == 128 and op.halo == 384 and op.n_views == 4
-    big = next(s for s in op.subs if s.B == 512)
-    assert type(big).__name__ == "_TwoStageBdSub" and big.M == 1
-
-    rng = np.random.default_rng(10)
-    x = rng.standard_normal((2, chunk + op.halo)).astype(np.float32)
-    main, spill = omnibus_lcr(jnp.asarray(x), op, interpret=True)
-
-    ref = None
-    for p in plans:
-        K = p.block_size // p.hop_size
-        F = chunk // p.hop_size
-        T = (F + K - 1) * p.hop_size
-        contrib = np.asarray(_bucket_fold_mm(p, jnp.asarray(x[:, :T]), F))
-        contrib = np.pad(contrib, ((0, 0), (0, chunk + op.halo - T)))
-        ref = contrib if ref is None else ref + contrib
-    got = np.concatenate([np.asarray(main), np.asarray(spill)], axis=1)
-    assert snr_db(ref, got) > 80.0
-
-
-def test_omnibus_lane_stack_random_fuzz():
-    # Randomized 2-stage lane-stacked geometries (interpret mode): force
-    # every bucket onto the block-diagonal path (direct_weight_limit=0)
-    # so multi-start subs exercise the S-fold lane stacking, and compare
-    # the raw omnibus against the per-bucket grouped-framing reference.
-    from upmix_tpu.models.offline import _bucket_fold_mm, _plan_buckets
-    from upmix_tpu.ops.pallas_omnibus import make_omnibus_plan, omnibus_lcr
-
-    rng = np.random.default_rng(55)
-    for trial in range(3):
-        sr = float(rng.choice([8000, 16000, 44100]))
-        edges = [0.0] + sorted(
-            float(f) for f in rng.uniform(sr * 0.03, sr * 0.4, size=2)
-        )
-        if edges[2] - edges[1] < sr * 0.02:
-            continue
-        max_block = int(rng.choice([512, 1024]))
-        cfg = UpmixConfig.make(edges, sr=sr, max_block_size=max_block)
-        unit = 1
-        for b in cfg.bands:
-            unit = unit * b.block_size // np.gcd(unit, b.block_size)
-        chunk = 4 * unit
-        plans = _plan_buckets(cfg, chunk)
-        op, leftover = make_omnibus_plan(
-            plans, chunk, min_tile=0, direct_weight_limit=0
-        )
-        assert leftover == []
-        assert any(
-            getattr(s, "lane_stack", 1) > 1 for s in op.subs
-        ), f"trial {trial}: no lane-stacked sub (edges={edges}, mb={max_block})"
-        x = rng.standard_normal((2, chunk + (op.n_views - 1) * op.tile))
-        x = x.astype(np.float32)
-        main, spill = omnibus_lcr(jnp.asarray(x), op, interpret=True)
-        ref = None
-        for p in plans:
-            K = p.block_size // p.hop_size
-            F = chunk // p.hop_size
-            T = (F + K - 1) * p.hop_size
-            contrib = np.asarray(_bucket_fold_mm(p, jnp.asarray(x[:, :T]), F))
-            contrib = np.pad(
-                contrib, ((0, 0), (0, chunk + op.halo - T))
-            )
-            ref = contrib if ref is None else ref + contrib
-        got = np.concatenate(
-            [np.asarray(main), np.asarray(spill[:, : op.halo])], axis=1
-        )
-        s = snr_db(ref, got)
-        assert s > 80.0, f"trial {trial}: {s:.1f} dB (edges={edges})"
-
-
-def test_omnibus_random_config_fuzz():
-    # Bounded fuzz of the full pallas path (interpret mode): random edges,
-    # rates, caps, and xover modes through the single-launch omnibus must
-    # hold >60 dB vs the oracle.  (The broader fuzz in test_edge_cases
-    # covers the non-pallas kernels; this one pins the kernel that runs
-    # on the chip.)
+def test_chunked_scan_random_config_fuzz():
+    # Bounded fuzz of the chunked scan: random edges, rates, caps, and
+    # xover modes must hold >60 dB vs the oracle over several segments.
+    # (The broader fuzz in test_edge_cases covers the whole-file kernels;
+    # this one pins the scan the GPU runs on long inputs.)
     import jax
 
-    from upmix_tpu.models.offline import build_offline_chunked_fn
+    from upmix.models.offline import build_offline_chunked_fn
 
     rng = np.random.default_rng(77)
     for trial in range(4):
@@ -603,11 +348,7 @@ def test_omnibus_random_config_fuzz():
         L, R = make_stereo(n, sr, seed=100 + trial)
         L32, R32 = L.astype(np.float32), R.astype(np.float32)
         ref = oracle_multiband(L32, R32, cfg)
-        fn = jax.jit(
-            build_offline_chunked_fn(
-                cfg, n, chunk=chunk, use_pallas=True, use_omnibus=True
-            )
-        )
+        fn = jax.jit(build_offline_chunked_fn(cfg, n, chunk=chunk, kernel="mm"))
         got = fn(jnp.asarray(L32), jnp.asarray(R32))
         for name, r, g in zip("C Ls Rs".split(), ref, got):
             if np.max(np.abs(r)) < 1e-7:

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from upmix_tpu.filter_design import (
+from upmix.filter_design import (
     _firwin_fallback,
     apply_fir_filter,
     design_lr4_hp_fir,

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from upmix_tpu.ops.framing import frame_signal, offline_frame_plan, overlap_add
+from upmix.ops.framing import frame_signal, offline_frame_plan, overlap_add
 
 
 def _naive_frames(x, block, hop, F):

@@ -1,4 +1,4 @@
-"""Generative config fuzz sweep (SURVEY §4 insurance; VERDICT r4 item 3).
+"""Generative config fuzz sweep (SURVEY §4 insurance).
 
 Seeded random configurations over the reference's full constructor
 surface (center_extraction.py:240-266, 518-580): edge counts 1-10 with
@@ -18,12 +18,12 @@ seed; bump N_* or change BASE_SEED locally for a deeper hunt.
 import numpy as np
 import pytest
 
-from upmix_tpu.config import UpmixConfig
-from upmix_tpu.models.offline import upmix_offline
-from upmix_tpu.models.streaming import StreamingUpmixer
-from upmix_tpu.oracle import oracle_multiband
-from upmix_tpu.oracle.reference import oracle_stream_multiband
-from upmix_tpu.ops.windows import is_known_window, register_window_vector
+from upmix.config import UpmixConfig
+from upmix.models.offline import upmix_offline
+from upmix.models.streaming import StreamingUpmixer
+from upmix.oracle import oracle_multiband
+from upmix.oracle.reference import oracle_stream_multiband
+from upmix.ops.windows import is_known_window, register_window_vector
 
 from helpers import make_stereo, snr_db
 
@@ -163,7 +163,7 @@ def test_fuzz_sharded(seed):
     # Random configs through the 8-way sequence-sharded pipeline: halo
     # exchange and OLA spill must hold parity at every shard seam for
     # arbitrary geometry, not just the hand-picked test configs.
-    from upmix_tpu.parallel import ShardedUpmixer, make_mesh
+    from upmix.parallel import ShardedUpmixer, make_mesh
 
     params = _draw(seed)
     cfg = _build_or_reject(params)
@@ -194,7 +194,7 @@ def test_fuzz_pool(seed):
     # Random streaming configs through make_stream_pool (auto engine):
     # a pooled stream must match the block-streaming oracle exactly
     # like a dedicated engine would.
-    from upmix_tpu.models.streaming import make_stream_pool
+    from upmix.models.streaming import make_stream_pool
 
     rng = np.random.default_rng(seed)
     sr = SRS[rng.integers(len(SRS))]
@@ -238,7 +238,7 @@ def test_fuzz_pool(seed):
 def test_fuzz_aot_offline_roundtrip(seed, tmp_path):
     # Random configs survive the AOT export/load cycle: the loaded
     # artifact must hold the same oracle contract as the live pipeline.
-    from upmix_tpu import aot
+    from upmix import aot
 
     params = _draw(seed)
     cfg = _build_or_reject(params)
@@ -258,7 +258,7 @@ def test_fuzz_aot_offline_roundtrip(seed, tmp_path):
 
 @pytest.mark.parametrize("seed", range(BASE_SEED + 2000, BASE_SEED + 2000 + N_NATIVE))
 def test_fuzz_native(seed):
-    native = pytest.importorskip("upmix_tpu.native")
+    native = pytest.importorskip("upmix.native")
     if not native.is_available():
         pytest.skip("native lib unavailable")
     rng = np.random.default_rng(seed)
@@ -301,9 +301,9 @@ def test_fuzz_offline_batch_mesh(seed, tmp_path):
     # zero-padded to the batch max, stacked over a data=2,seq=4 mesh,
     # trimmed per file — every file's export must match its SOLO
     # unsharded run (same scaling semantics on both sides).
-    from upmix_tpu.app import run_offline, run_offline_batch
-    from upmix_tpu.io import read_wav, write_wav
-    from upmix_tpu.parallel import make_mesh
+    from upmix.app import run_offline, run_offline_batch
+    from upmix.io import read_wav, write_wav
+    from upmix.parallel import make_mesh
 
     params = _draw(seed)
     cfg = _build_or_reject(params)

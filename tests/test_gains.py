@@ -4,8 +4,8 @@ reference's in-place filter loops (center_extraction.py:273-351)."""
 import numpy as np
 import pytest
 
-from upmix_tpu.config import BandSpec, freq_to_bin
-from upmix_tpu.ops.gains import band_gain_curve
+from upmix.config import BandSpec, freq_to_bin
+from upmix.ops.gains import band_gain_curve
 
 
 def _reference_filter(spec: np.ndarray, band: BandSpec) -> np.ndarray:

@@ -1,4 +1,4 @@
-"""Serving observability tests (upmix_tpu/metrics.py + the stream
+"""Serving observability tests (upmix/metrics.py + the stream
 server's UPMQ query / HTTP endpoint): counters must agree with the
 server's own accounting, histograms must see one sample per pool
 dispatch, and the Prometheus text exposition must be well-formed.
@@ -12,10 +12,10 @@ import urllib.request
 import numpy as np
 import pytest
 
-from upmix_tpu.config import UpmixConfig
-from upmix_tpu.metrics import LatencyHistogram, ServerMetrics, prometheus_text
-from upmix_tpu.models.streaming import BatchStreamingUpmixer
-from upmix_tpu.serve_stream import StreamServer, fetch_metrics, stream_client
+from upmix.config import UpmixConfig
+from upmix.metrics import LatencyHistogram, ServerMetrics, prometheus_text
+from upmix.models.streaming import BatchStreamingUpmixer
+from upmix.serve_stream import StreamServer, fetch_metrics, stream_client
 
 from helpers import make_stereo
 

@@ -9,12 +9,12 @@ import subprocess
 import numpy as np
 import pytest
 
-from upmix_tpu.config import UpmixConfig
-from upmix_tpu.oracle.reference import oracle_stream_multiband
+from upmix.config import UpmixConfig
+from upmix.oracle.reference import oracle_stream_multiband
 
 from helpers import make_stereo, snr_db
 
-native = pytest.importorskip("upmix_tpu.native")
+native = pytest.importorskip("upmix.native")
 
 if not native.is_available():
     import os
@@ -119,7 +119,7 @@ def test_native_parity_vs_oracle_wola_mode():
 
 def test_native_vs_jax_streaming():
     # Cross-implementation agreement: C++ shell vs the JAX scan engine.
-    from upmix_tpu.models.streaming import StreamingUpmixer
+    from upmix.models.streaming import StreamingUpmixer
 
     cfg = UpmixConfig.streaming(EDGES, sr=SR, hw_block_size=HW)
     s = StreamingUpmixer(cfg, HW)
@@ -298,7 +298,7 @@ def test_native_pool_under_tsan():
     code = """
 import sys
 sys.path.insert(0, %r)
-import upmix_tpu.native.host as host
+import upmix.native.host as host
 host._LIB_PATH = %r
 host._LIB = None
 import numpy as np
@@ -365,13 +365,13 @@ def test_native_random_config_fuzz_vs_oracle():
 
 def test_standalone_cli_binary_matches_python_pipe():
     # The no-Python deployment binary (make -C native cli) must be
-    # BIT-identical to `upmix-tpu - --pipe --engine native` on the same
+    # BIT-identical to `upmix - --pipe --engine native` on the same
     # raw stream (same engine, same alignment/drain semantics).
     import io
     import os
     import sys
 
-    from upmix_tpu.app import run_pipe
+    from upmix.app import run_pipe
 
     root = os.path.join(os.path.dirname(__file__), "..")
     binary = os.path.join(root, "native", "upmix_cli")

@@ -12,8 +12,8 @@ import subprocess
 import numpy as np
 import pytest
 
-from upmix_tpu.models.streaming import BatchStreamingUpmixer
-from upmix_tpu.serve_stream import StreamServer, stream_client
+from upmix.models.streaming import BatchStreamingUpmixer
+from upmix.serve_stream import StreamServer, stream_client
 
 from helpers import make_stereo
 from test_serve_stream import HW, SR, _cfg
@@ -107,7 +107,7 @@ def test_net_client_file_resume_across_server_restart(net_bin, tmp_path):
     import threading
     import time
 
-    from upmix_tpu.serve_stream import StreamSession
+    from upmix.serve_stream import StreamSession
 
     def pool_factory():
         return BatchStreamingUpmixer(_cfg(), HW, n_streams=4)
@@ -230,7 +230,7 @@ def test_net_client_resume_after_padded_tail_acked(net_bin, tmp_path):
     import threading
     import time
 
-    from upmix_tpu.serve_stream import StreamSession
+    from upmix.serve_stream import StreamSession
 
     def pool_factory():
         return BatchStreamingUpmixer(_cfg(), HW, n_streams=4)

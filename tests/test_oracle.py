@@ -3,8 +3,8 @@
 
 import numpy as np
 
-from upmix_tpu.config import BandSpec, UpmixConfig
-from upmix_tpu.oracle import oracle_band_full, oracle_multiband
+from upmix.config import BandSpec, UpmixConfig
+from upmix.oracle import oracle_band_full, oracle_multiband
 
 from helpers import make_stereo, snr_db
 

@@ -6,7 +6,7 @@ import time
 import numpy as np
 import pytest
 
-from upmix_tpu.utils.profiling import RealtimeMeter, time_fn, trace
+from upmix.utils.profiling import RealtimeMeter, time_fn, trace
 
 
 def test_realtime_meter():
@@ -40,13 +40,13 @@ def test_trace_writes_profile(tmp_path):
 
 
 def test_package_lazy_exports():
-    import upmix_tpu
+    import upmix
 
-    assert callable(upmix_tpu.Upmixer)
-    assert callable(upmix_tpu.StreamingUpmixer)
-    assert callable(upmix_tpu.BatchUpmixer)
-    assert callable(upmix_tpu.ShardedUpmixer)
-    assert callable(upmix_tpu.run_offline)
-    assert callable(upmix_tpu.run_streaming)
+    assert callable(upmix.Upmixer)
+    assert callable(upmix.StreamingUpmixer)
+    assert callable(upmix.BatchUpmixer)
+    assert callable(upmix.ShardedUpmixer)
+    assert callable(upmix.run_offline)
+    assert callable(upmix.run_streaming)
     with pytest.raises(AttributeError):
-        upmix_tpu.no_such_thing
+        upmix.no_such_thing

@@ -45,7 +45,7 @@ def ce():
 
 
 def test_windows_match_reference(ce):
-    from upmix_tpu.ops.windows import (
+    from upmix.ops.windows import (
         design_wola_synthesis_window,
         make_blackman_harris,
         make_hann,
@@ -67,7 +67,7 @@ def test_windows_match_reference(ce):
 
 
 def test_sizing_matches_reference(ce):
-    from upmix_tpu.config import (
+    from upmix.config import (
         compute_block_size_for_low_freq,
         freq_to_bin,
         hp_freq_to_crossover_width,
@@ -88,8 +88,8 @@ def test_oracle_matches_reference_end_to_end(ce):
     # Full multiband pipeline: the reference's chain_bands + in-memory
     # extraction vs our oracle on identical float32 input — these should
     # agree to float precision (the oracle encodes the same numerics).
-    from upmix_tpu.config import UpmixConfig
-    from upmix_tpu.oracle import oracle_multiband
+    from upmix.config import UpmixConfig
+    from upmix.oracle import oracle_multiband
 
     sr = 8000.0
     edges = [0.0, 400.0, 1600.0]
@@ -117,9 +117,9 @@ def test_oracle_matches_reference_end_to_end(ce):
 
 
 def test_jax_pipeline_matches_reference_end_to_end(ce):
-    # And the TPU pipeline itself against the real reference (>60 dB bar).
-    from upmix_tpu.config import UpmixConfig
-    from upmix_tpu.models.offline import upmix_offline
+    # And the JAX pipeline itself against the real reference (>60 dB bar).
+    from upmix.config import UpmixConfig
+    from upmix.models.offline import upmix_offline
 
     sr = 8000.0
     edges = [0.0, 400.0, 1600.0]
@@ -144,8 +144,8 @@ def test_jax_pipeline_matches_reference_end_to_end(ce):
 
 def test_oracle_matches_reference_default_44k_config(ce):
     # The headline configuration (main.py:62-73 defaults) end-to-end.
-    from upmix_tpu.config import UpmixConfig
-    from upmix_tpu.oracle import oracle_multiband
+    from upmix.config import UpmixConfig
+    from upmix.oracle import oracle_multiband
 
     sr = 44100.0
     edges = [0.0, 30.0, 120.0, 480.0, 1920.0, 7680.0]
@@ -167,8 +167,8 @@ def test_oracle_matches_reference_default_44k_config(ce):
 
 
 def test_oracle_matches_reference_hard_zero(ce):
-    from upmix_tpu.config import UpmixConfig
-    from upmix_tpu.oracle import oracle_multiband
+    from upmix.config import UpmixConfig
+    from upmix.oracle import oracle_multiband
 
     sr = 8000.0
     edges = [0.0, 400.0, 1600.0]
@@ -198,9 +198,9 @@ def test_random_config_fuzz_vs_real_reference(ce):
     # (>100 dB) and the JAX pipeline must hold the >60 dB bar on every
     # draw.  chain_bands has no block-size cap parameter, so UpmixConfig
     # uses its matching default (2**16, center_extraction.py:173-197).
-    from upmix_tpu.config import UpmixConfig
-    from upmix_tpu.models.offline import upmix_offline
-    from upmix_tpu.oracle import oracle_multiband
+    from upmix.config import UpmixConfig
+    from upmix.models.offline import upmix_offline
+    from upmix.oracle import oracle_multiband
 
     windows = {
         "blackman_harris": ce.make_blackman_harris,
@@ -254,9 +254,9 @@ def test_above_nyquist_edge_matches_reference(ce):
     # and the upper fade is skipped since f_high >= sr/2,
     # center_extraction.py:318); both the oracle and the JAX pipeline
     # must track it.
-    from upmix_tpu.config import UpmixConfig
-    from upmix_tpu.models.offline import upmix_offline
-    from upmix_tpu.oracle import oracle_multiband
+    from upmix.config import UpmixConfig
+    from upmix.models.offline import upmix_offline
+    from upmix.oracle import oracle_multiband
 
     sr = 8000.0
     edges = [0.0, 500.0, 6000.0]  # 6000 > Nyquist (4000)
@@ -285,8 +285,8 @@ def test_jax_pipeline_matches_reference_arbitrary_overlap(ce, overlap):
     # Round-2 regression: non-divisible overlaps (hop not dividing block)
     # run the gather-framing mm path; hold it against the REAL reference,
     # which accepts any overlap with hop >= 1 (center_extraction.py:250-254).
-    from upmix_tpu.config import UpmixConfig
-    from upmix_tpu.models.offline import upmix_offline
+    from upmix.config import UpmixConfig
+    from upmix.models.offline import upmix_offline
 
     sr = 8000.0
     edges = [0.0, 400.0, 1600.0]

@@ -10,8 +10,8 @@ import sys
 import numpy as np
 import pytest
 
-from upmix_tpu.app import run_jobs
-from upmix_tpu.io import read_wav, write_wav
+from upmix.app import run_jobs
+from upmix.io import read_wav, write_wav
 
 from helpers import cpu_child_env, make_stereo
 
@@ -72,7 +72,7 @@ def test_run_jobs_cache_bounded_under_failing_jobs(tmp_path):
     # documented 8-config bound (the eviction runs in a finally block).
     import numpy as np
 
-    from upmix_tpu.io import write_wav
+    from upmix.io import write_wav
 
     jobs = []
     for i, sr in enumerate([8000, 11025, 16000, 22050, 24000, 32000,
@@ -116,7 +116,7 @@ def test_serve_cli_roundtrip(tmp_path):
     env = cpu_child_env()
     proc = subprocess.run(
         [
-            sys.executable, "-m", "upmix_tpu.cli", "-", "--serve",
+            sys.executable, "-m", "upmix.cli", "-", "--serve",
             "--band-edges", "0,400", "--max-block-size", "256",
             "--pad-granularity", "2048",
         ],
@@ -138,7 +138,7 @@ def test_serve_exit_code_all_failed(tmp_path):
     # a healthy or empty stream exits 0 (the other tests cover that).
     env = cpu_child_env()
     proc = subprocess.run(
-        [sys.executable, "-m", "upmix_tpu.cli", "-", "--serve"],
+        [sys.executable, "-m", "upmix.cli", "-", "--serve"],
         input='{"in": "/nonexistent/x.wav"}\n',
         capture_output=True,
         text=True,
@@ -154,7 +154,7 @@ def test_serve_requires_dash_input(tmp_path):
     a = _wav(tmp_path / "x.wav")
     env = cpu_child_env()
     proc = subprocess.run(
-        [sys.executable, "-m", "upmix_tpu.cli", a, "--serve"],
+        [sys.executable, "-m", "upmix.cli", a, "--serve"],
         capture_output=True,
         text=True,
         timeout=120,

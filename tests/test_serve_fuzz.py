@@ -1,7 +1,7 @@
 """Seeded protocol-interleaving fuzz of the stream server.
 
 test_serve_stream.py pins CHOSEN interleavings; this sweep drives
-RANDOM ones against randomly-built servers (engine, hops, pipeline
+RANDOM ones against randomly-built servers (donation, mesh, pipeline
 drawn per seed): concurrent full sessions with random lengths and mix
 modes, mid-stream aborts (plain close and RST, output never read),
 malformed hellos, unknown resume tokens, metrics queries, and
@@ -33,8 +33,8 @@ import time
 import numpy as np
 import pytest
 
-from upmix_tpu.models.streaming import BatchStreamingUpmixer
-from upmix_tpu.serve_stream import (
+from upmix.models.streaming import BatchStreamingUpmixer
+from upmix.serve_stream import (
     MAGIC_HELLO,
     MAGIC_REPLY,
     StreamServer,
@@ -51,27 +51,23 @@ BASE_SEED = 20260821
 
 
 def _make_server(rng):
-    """Random lockstep server geometry: XLA pool (pipeline 1 or 2,
-    optionally mesh-sharded over 2 virtual devices) or a pallas
-    interpret pool (hops x pipeline).  Returns (server, n_slots)."""
+    """Random lockstep server geometry: the pool (pipeline 1 or 2),
+    optionally without state donation or mesh-sharded over 2 virtual
+    devices.  Returns (server, n_slots)."""
     kind = int(rng.integers(5))
     if kind == 3:
-        from upmix_tpu.models.streaming import PallasStreamPool
-
-        pool = PallasStreamPool(_cfg(), HW, n_streams=8, group=8,
-                                interpret=True)
-        hops = int(rng.choice([1, 2]))
+        pool = BatchStreamingUpmixer(_cfg(), HW, n_streams=8, donate=False)
         pipeline = int(rng.choice([1, 2]))
     elif kind == 4:
         import jax
 
         mesh = jax.sharding.Mesh(np.array(jax.devices()[:2]), ("data",))
         pool = BatchStreamingUpmixer(_cfg(), HW, n_streams=4, mesh=mesh)
-        hops, pipeline = 1, int(rng.choice([1, 2]))
+        pipeline = int(rng.choice([1, 2]))
     else:
         pool = BatchStreamingUpmixer(_cfg(), HW, n_streams=4)
-        hops, pipeline = 1, (2 if kind == 2 else 1)
-    srv = StreamServer(pool, lockstep=True, hops=hops, pipeline=pipeline)
+        pipeline = 2 if kind == 2 else 1
+    srv = StreamServer(pool, lockstep=True, pipeline=pipeline)
     return srv.start(), pool.n_streams
 
 
@@ -296,7 +292,7 @@ def test_fuzz_realtime_mode_interleavings(seed, tmp_path):
 
 
 def _warmup_skip():
-    from upmix_tpu.models.streaming import stream_warmup_blocks
+    from upmix.models.streaming import stream_warmup_blocks
 
     return (stream_warmup_blocks(_cfg()) - 1) * HW
 

@@ -1,4 +1,4 @@
-"""Serving soak + leak gate (SURVEY §5 serving contract; VERDICT r4 item 4).
+"""Serving soak + leak gate (SURVEY §5 serving contract).
 
 A StreamServer lives for the whole soak while traffic churns through it:
 full sessions, abrupt half-close/RST aborts, periodic checkpoints, a
@@ -18,9 +18,9 @@ import time
 import numpy as np
 import pytest
 
-from upmix_tpu.config import UpmixConfig
-from upmix_tpu.models.streaming import BatchStreamingUpmixer
-from upmix_tpu.serve_stream import StreamServer, StreamSession, stream_client
+from upmix.config import UpmixConfig
+from upmix.models.streaming import BatchStreamingUpmixer
+from upmix.serve_stream import StreamServer, StreamSession, stream_client
 
 from helpers import make_stereo
 
@@ -148,7 +148,7 @@ def test_serve_soak_leak_gate(tmp_path):
         cums = [c for _b, c in h1["buckets"]]
         assert cums == sorted(cums), "cumulative bucket counts not monotone"
         assert cums[-1] <= h1["count"]  # overflow rides count, not a bucket
-    assert snap1["cycle_seconds"]["count"] == c1["blocks"] // snap1["config"]["hops"]
+    assert snap1["cycle_seconds"]["count"] == c1["blocks"]
 
 
 def test_soak_resume_cycle(tmp_path):
@@ -190,8 +190,8 @@ def test_soak_resume_cycle(tmp_path):
 
 
 def test_soak_script_smoke(tmp_path):
-    # The hours-scale script variant must stay runnable (BASELINE.md
-    # cites it); 3 seconds of traffic, JSON summary, clean exit.
+    # The hours-scale script variant must stay runnable; 3 seconds of
+    # traffic, JSON summary, clean exit.
     import json
     import subprocess
     import sys
@@ -210,25 +210,6 @@ def test_soak_script_smoke(tmp_path):
     summary = json.load(open(out))
     assert summary["sessions"] > 0 and summary["client_errors"] == 0
     assert summary["final_counters"]["dispatcher_failures"] == 0
-
-
-def test_roofline_script_smoke():
-    # The roofline derivation must keep matching the live plan builders
-    # (it introspects make_omnibus_plan/make_pool_plan directly).
-    import subprocess
-    import sys
-
-    from helpers import cpu_child_env
-
-    root = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
-    r = subprocess.run(
-        [sys.executable, os.path.join(root, "scripts", "roofline.py")],
-        capture_output=True, text=True, env=cpu_child_env(), cwd=root,
-        timeout=300,
-    )
-    assert r.returncode == 0, r.stdout[-800:] + r.stderr[-1200:]
-    assert "MFU" in r.stdout and "bound" in r.stdout
-    assert "omnibus plan:" in r.stdout and "pool plan:" in r.stdout
 
 
 def test_soak_realtime_tick_phase():

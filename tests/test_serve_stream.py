@@ -1,4 +1,4 @@
-"""Multi-client stream-server tests (upmix_tpu/serve_stream.py): the
+"""Multi-client stream-server tests (upmix/serve_stream.py): the
 socket surface must hand each client exactly the warmup-aligned output
 its signal would get from the single-stream engine — concurrently, with
 slot churn and pool-full rejection (SURVEY.md §5 failure handling; the
@@ -9,9 +9,9 @@ import threading
 import numpy as np
 import pytest
 
-from upmix_tpu.config import UpmixConfig
-from upmix_tpu.models.streaming import BatchStreamingUpmixer, StreamingUpmixer
-from upmix_tpu.serve_stream import StreamServer, stream_client
+from upmix.config import UpmixConfig
+from upmix.models.streaming import BatchStreamingUpmixer, StreamingUpmixer
+from upmix.serve_stream import StreamServer, stream_client
 
 from helpers import make_stereo, snr_db
 
@@ -35,7 +35,7 @@ def _aligned_reference(L, R, mix="stereo_sum"):
     """What a warmup-aligned client must receive: run the single-stream
     engine over the (padded) signal plus zero drain blocks, drop the
     leading warmup silence, trim to the input length."""
-    from upmix_tpu.models.streaming import stream_warmup_blocks
+    from upmix.models.streaming import stream_warmup_blocks
 
     eng = StreamingUpmixer(_cfg(), HW)
     n = len(L)
@@ -138,7 +138,7 @@ def test_pool_full_rejection():
         import socket
         import struct
 
-        from upmix_tpu.serve_stream import MAGIC_HELLO, MAGIC_REPLY, _read_exact
+        from upmix.serve_stream import MAGIC_HELLO, MAGIC_REPLY, _read_exact
 
         hold = socket.create_connection(srv.address, timeout=10)
         hold.sendall(MAGIC_HELLO + struct.pack("<II", 1, 0))
@@ -184,7 +184,7 @@ def test_realtime_tick_mode_completes():
 
 
 def test_cli_serve_stream_round_trip(tmp_path):
-    # The `upmix-tpu - --serve-stream` surface end-to-end: spawn the CLI
+    # The `upmix - --serve-stream` surface end-to-end: spawn the CLI
     # server as a subprocess (CPU env), connect with stream_client, and
     # check the aligned round trip against the single-stream engine.
     import re
@@ -196,7 +196,7 @@ def test_cli_serve_stream_round_trip(tmp_path):
 
     proc = subprocess.Popen(
         [
-            sys.executable, "-m", "upmix_tpu.cli", "-",
+            sys.executable, "-m", "upmix.cli", "-",
             "--serve-stream", "0", "--sr", str(SR), "--hw-block", str(HW),
             "--band-edges", ",".join(str(e) for e in EDGES),
             "--streams", "2", "--lockstep",
@@ -234,7 +234,7 @@ def test_rst_abort_frees_slot_and_pool_keeps_serving():
     import socket
     import struct
 
-    from upmix_tpu.serve_stream import MAGIC_HELLO, _read_exact
+    from upmix.serve_stream import MAGIC_HELLO, _read_exact
 
     pool = BatchStreamingUpmixer(_cfg(), HW, n_streams=1)
     with StreamServer(pool, lockstep=True) as srv:
@@ -265,12 +265,11 @@ def test_rst_abort_frees_slot_and_pool_keeps_serving():
         _check(got, _aligned_reference(L, R))
 
 
-def test_spectral_pool_serves_clients():
-    # The spectral-OLA pallas pool composes with the socket stack: a
-    # client's warmup-aligned output matches the single-stream engine.
-    from upmix_tpu.models.streaming import PallasStreamPool
-
-    pool = PallasStreamPool(_cfg(), HW, n_streams=8, group=8, ola="spectral")
+def test_non_donating_pool_serves_clients():
+    # A pool built without state donation composes with the socket stack
+    # like the default one: a client's warmup-aligned output matches the
+    # single-stream engine.
+    pool = BatchStreamingUpmixer(_cfg(), HW, n_streams=8, donate=False)
     with StreamServer(pool, lockstep=True) as srv:
         L, R = make_stereo(8 * HW, SR, seed=67)
         L, R = L.astype(np.float32), R.astype(np.float32)
@@ -280,21 +279,18 @@ def test_spectral_pool_serves_clients():
 
 def test_run_stream_server_pool_options():
     # The CLI entry (run_stream_server) forwards its explicit pool
-    # options — a lockstep spectral pallas pool built through the
-    # factory path, not a hand-built pool — and a typo'd keyword
-    # raises at the call site instead of inside pool construction.
-    from upmix_tpu.serve_stream import run_stream_server
+    # options — a lockstep pool built through the factory path, not a
+    # hand-built pool — and a typo'd keyword raises at the call site
+    # instead of inside pool construction.
+    from upmix.serve_stream import run_stream_server
 
     srv = run_stream_server(
         0, sr=SR, n_streams=8, hw_block_size=HW, band_edges=EDGES,
-        lockstep=True, engine="pallas", ola="spectral", group=8,
-        verbose=False,
+        lockstep=True, engine="xla", verbose=False,
     )
     try:
-        from upmix_tpu.models.streaming import PallasStreamPool
-
-        assert isinstance(srv.pool, PallasStreamPool)
-        assert srv.pool.ola == "spectral"
+        assert isinstance(srv.pool, BatchStreamingUpmixer)
+        assert srv.pool.n_streams == 8
         L, R = make_stereo(6 * HW, SR, seed=91)
         got = stream_client(*srv.address, L.astype(np.float32),
                             R.astype(np.float32))
@@ -305,13 +301,15 @@ def test_run_stream_server_pool_options():
 
     with pytest.raises(TypeError):
         run_stream_server(0, sr=SR, lockstp=True)
+    with pytest.raises(ValueError, match="unknown engine"):
+        run_stream_server(0, sr=SR, engine="pallas", verbose=False)
 
 
 # -- checkpoint / resume (protocol v2) ---------------------------------------
 
 
 def _warmup_skip():
-    from upmix_tpu.models.streaming import stream_warmup_blocks
+    from upmix.models.streaming import stream_warmup_blocks
 
     return (stream_warmup_blocks(_cfg()) - 1) * HW
 
@@ -333,21 +331,21 @@ def _send_and_read(sess, xl, xr, start_blk, n_blocks, already_read):
     return sess.recv_frames(due) if due > 0 else np.zeros((0, sess.out_channels), "<f4")
 
 
-@pytest.mark.parametrize("pool_kind", ["xla", "pallas"])
+@pytest.mark.parametrize("pool_kind", ["xla", "mesh"])
 def test_checkpoint_resume_continues_exactly(tmp_path, pool_kind):
     # A session checkpointed mid-stream and resumed on a NEW server (new
     # pool, state injected from the checkpoint) must produce the exact
     # continuation of an uninterrupted run — the serving product's
     # failure-recovery contract (SURVEY.md §5 checkpoint/resume).
-    from upmix_tpu.serve_stream import StreamSession
+    from upmix.serve_stream import StreamSession
 
     def pool_factory():
-        if pool_kind == "pallas":
-            from upmix_tpu.models.streaming import PallasStreamPool
+        mesh = None
+        if pool_kind == "mesh":
+            import jax
 
-            return PallasStreamPool(_cfg(), HW, n_streams=8, group=8,
-                                    interpret=True)
-        return BatchStreamingUpmixer(_cfg(), HW, n_streams=8)
+            mesh = jax.sharding.Mesh(np.array(jax.devices()[:2]), ("data",))
+        return BatchStreamingUpmixer(_cfg(), HW, n_streams=8, mesh=mesh)
 
     n_blocks = 12
     L, R = make_stereo(n_blocks * HW, SR, seed=101)
@@ -390,7 +388,7 @@ def test_checkpoint_captures_queued_blocks(tmp_path):
     # Blocks a client sent but the server had not yet dispatched (held
     # back by lockstep on another slot) ride the checkpoint and are
     # processed first after resume — no input is lost or re-requested.
-    from upmix_tpu.serve_stream import StreamSession
+    from upmix.serve_stream import StreamSession
 
     def pool_factory():
         return BatchStreamingUpmixer(_cfg(), HW, n_streams=4)
@@ -449,60 +447,8 @@ def test_checkpoint_captures_queued_blocks(tmp_path):
     np.testing.assert_array_equal(gy, np.column_stack(ref_y))
 
 
-def test_checkpoint_restores_into_aot_loaded_pool_server(tmp_path):
-    # Build/serve host separation: a checkpoint taken by a LIVE-pool
-    # server restores into a server whose pool is an AOT-loaded
-    # artifact of the same identity, and the resumed session continues
-    # sample-exactly — the deployment shape where the serving host
-    # loads frozen programs instead of Python-traced pools.
-    from upmix_tpu import aot
-    from upmix_tpu.models.streaming import PallasStreamPool
-    from upmix_tpu.serve_stream import StreamSession
-
-    S = 8
-
-    def live_pool():
-        return PallasStreamPool(_cfg(), HW, n_streams=S, group=8,
-                                interpret=True)
-
-    n_blocks = 10
-    L, R = make_stereo(n_blocks * HW, SR, seed=107)
-    L, R = L.astype(np.float32), R.astype(np.float32)
-    ref = _one_shot(live_pool, L, R)
-
-    apath = str(tmp_path / "pool.upmixaot")
-    aot.save_stream_pool(apath, _cfg(), HW, S, group=8,
-                         platforms=["cpu"], interpret=True)
-
-    ck = str(tmp_path / "sessions.npz")
-    cut = 5
-    srv_a = StreamServer(live_pool(), lockstep=True).start()
-    sess = StreamSession(*srv_a.address)
-    part1 = _send_and_read(sess, L, R, 0, cut, 0)
-    assert srv_a.save_checkpoint(ck) == 1
-    sess.close()
-    srv_a.close()
-
-    srv_b = StreamServer(aot.load(apath), lockstep=True,
-                         checkpoint=ck).start()
-    try:
-        sess2 = StreamSession(*srv_b.address, token=sess.token)
-        assert sess2.server_in_frames == cut * HW
-        assert sess2.server_out_frames == len(part1)
-        for b in range(cut, n_blocks):
-            sess2.send_block(L[b * HW:(b + 1) * HW],
-                             R[b * HW:(b + 1) * HW])
-        sess2.finish()
-        part2 = sess2.recv_frames(n_blocks * HW - len(part1))
-        sess2.close()
-    finally:
-        srv_b.close()
-    got = np.concatenate([part1, part2])
-    np.testing.assert_array_equal(got, np.column_stack(ref))
-
-
 def test_resume_token_rejection_and_identity_guard(tmp_path):
-    from upmix_tpu.serve_stream import StreamSession
+    from upmix.serve_stream import StreamSession
 
     pool = BatchStreamingUpmixer(_cfg(), HW, n_streams=4)
     with StreamServer(pool, lockstep=True) as srv:
@@ -530,7 +476,7 @@ def test_resume_ttl_reclaims_parked_slots(tmp_path):
     # gets the unknown-token status.
     import time as _t
 
-    from upmix_tpu.serve_stream import StreamSession
+    from upmix.serve_stream import StreamSession
 
     def pool_factory():
         return BatchStreamingUpmixer(_cfg(), HW, n_streams=1)
@@ -572,7 +518,7 @@ def test_resume_ttl_reclaims_parked_slots(tmp_path):
 def test_run_stream_server_snapshot_path(tmp_path):
     # The CLI entry restores parked sessions from --snapshot-path when
     # the file exists (and the CLI writes it back on shutdown).
-    from upmix_tpu.serve_stream import StreamSession, run_stream_server
+    from upmix.serve_stream import StreamSession, run_stream_server
 
     path = str(tmp_path / "live.npz")
     kw = dict(sr=SR, n_streams=4, hw_block_size=HW, band_edges=EDGES,
@@ -622,7 +568,7 @@ def test_periodic_checkpoint_and_output_dedupe(tmp_path):
     import os
     import time
 
-    from upmix_tpu.serve_stream import StreamServer, StreamSession
+    from upmix.serve_stream import StreamServer, StreamSession
 
     def pool_factory():
         return BatchStreamingUpmixer(_cfg(), HW, n_streams=4)
@@ -678,12 +624,12 @@ def test_periodic_checkpoint_and_output_dedupe(tmp_path):
 
 
 def test_cli_connect_client_mode(tmp_path):
-    # `upmix-tpu in.wav --connect HOST:PORT`: the network-client mode
+    # `upmix in.wav --connect HOST:PORT`: the network-client mode
     # streams files through a running server (no local JAX work) and
     # writes the returned mix; a sample-rate mismatch is refused before
     # any audio is sent.
-    from upmix_tpu.cli import main
-    from upmix_tpu.io import read_wav, write_wav
+    from upmix.cli import main
+    from upmix.io import read_wav, write_wav
 
     pool = BatchStreamingUpmixer(_cfg(), HW, n_streams=4)
     with StreamServer(pool, lockstep=True) as srv:
@@ -714,80 +660,6 @@ def test_cli_connect_client_mode(tmp_path):
         main([in_path, "--connect", "nonsense"])
     with pytest.raises(SystemExit, match="input WAV"):
         main(["-", "--connect", "127.0.0.1:1"])
-
-
-def test_hops_server_round_trip_with_drain_padding():
-    # Temporal batching (hops=2): the dispatcher pops 2 blocks per slot
-    # per cycle and serves them in ONE push_blocks_multi dispatch.  An
-    # ODD block count plus a short tail forces the DRAINING path to pad
-    # the final cycle with silence; the client must still receive its
-    # exact warmup-aligned output.
-    from upmix_tpu.models.streaming import PallasStreamPool
-
-    pool = PallasStreamPool(_cfg(), HW, n_streams=8, group=8,
-                            interpret=True)
-    with StreamServer(pool, lockstep=True, hops=2) as srv:
-        assert srv.metrics_snapshot()["config"]["hops"] == 2
-        L, R = make_stereo(9 * HW + 50, SR, seed=70)
-        L, R = L.astype(np.float32), R.astype(np.float32)
-        got = stream_client(*srv.address, L, R)
-        _check(got, _aligned_reference(L, R))
-        # blocks counts HARDWARE blocks (cycles * hops), not cycles.
-        assert srv.stats["blocks"] % 2 == 0
-
-
-def test_hops_concurrent_clients_lockstep():
-    # Two different-length signals at once under hops=2 lockstep: the
-    # shorter session goes DRAINING (zero-padded cycles) while the
-    # longer one is still ACTIVE feeding full cycles; both clients get
-    # their own exact result.
-    from upmix_tpu.models.streaming import PallasStreamPool
-
-    pool = PallasStreamPool(_cfg(), HW, n_streams=8, group=8,
-                            interpret=True)
-    sigs = []
-    for seed, blocks in ((71, 6), (72, 11)):
-        L, R = make_stereo(blocks * HW, SR, seed=seed)
-        sigs.append((L.astype(np.float32), R.astype(np.float32)))
-    with StreamServer(pool, lockstep=True, hops=2) as srv:
-        results = [None] * len(sigs)
-
-        def go(i):
-            results[i] = stream_client(*srv.address, *sigs[i])
-
-        threads = [
-            threading.Thread(target=go, args=(i,))
-            for i in range(len(sigs))
-        ]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=120)
-        for i, (L, R) in enumerate(sigs):
-            assert results[i] is not None, f"client {i} did not finish"
-            _check(results[i], _aligned_reference(L, R))
-
-
-def test_hops_construction_guards():
-    # hops > 1 must fail AT CONSTRUCTION for pools without the
-    # multi-hop kernel (XLA engine), for the window history layout, and
-    # when one cycle could never fit in a slot's bounded queue.
-    from upmix_tpu.models.streaming import PallasStreamPool
-
-    with pytest.raises(ValueError, match="multi-hop"):
-        StreamServer(BatchStreamingUpmixer(_cfg(), HW, n_streams=4),
-                     lockstep=True, hops=2)
-    wpool = PallasStreamPool(_cfg(), HW, n_streams=8, group=8,
-                             interpret=True, layout="window")
-    with pytest.raises(ValueError, match="quarters"):
-        StreamServer(wpool, lockstep=True, hops=2)
-    qpool = PallasStreamPool(_cfg(), HW, n_streams=8, group=8,
-                             interpret=True)
-    with pytest.raises(ValueError, match="max_buffered_blocks"):
-        StreamServer(qpool, lockstep=True, hops=64,
-                     max_buffered_blocks=32)
-    with pytest.raises(ValueError, match=">= 1"):
-        StreamServer(qpool, lockstep=True, hops=0)
 
 
 def test_pipeline_server_round_trip():
@@ -837,20 +709,6 @@ def test_pipeline_concurrent_clients_with_drain():
             _check(results[i], _aligned_reference(L, R))
 
 
-def test_pipeline_with_hops():
-    # The two serving knobs compose: hops=2 (two blocks per cycle) with
-    # pipeline=2 (one cycle in flight).
-    from upmix_tpu.models.streaming import PallasStreamPool
-
-    pool = PallasStreamPool(_cfg(), HW, n_streams=8, group=8,
-                            interpret=True)
-    with StreamServer(pool, lockstep=True, hops=2, pipeline=2) as srv:
-        L, R = make_stereo(7 * HW + 40, SR, seed=78)
-        L, R = L.astype(np.float32), R.astype(np.float32)
-        got = stream_client(*srv.address, L, R)
-        _check(got, _aligned_reference(L, R))
-
-
 def test_pipeline_construction_guard():
     pool = BatchStreamingUpmixer(_cfg(), HW, n_streams=4)
     for bad in (0, 3, -1):
@@ -868,7 +726,7 @@ def test_pipeline_checkpoint_flushes_in_flight(tmp_path):
     # fresh server with the at-least-once dedupe protocol.
     import time
 
-    from upmix_tpu.serve_stream import StreamSession
+    from upmix.serve_stream import StreamSession
 
     def pool_factory():
         return BatchStreamingUpmixer(_cfg(), HW, n_streams=4)
@@ -923,32 +781,27 @@ def test_pipeline_checkpoint_flushes_in_flight(tmp_path):
     np.testing.assert_array_equal(got, np.column_stack(ref))
 
 
-@pytest.mark.parametrize("hops,pipeline", [(2, 1), (1, 2), (2, 2)])
-def test_checkpoint_resume_under_hops_and_pipeline(tmp_path, hops, pipeline):
-    # VERDICT round-4 item 2: the sample-exact-continuation contract must
-    # hold when BOTH servers run temporal batching (hops=2) and/or
-    # pipelined dispatch (pipeline=2).  The cut point is chosen MID-CYCLE
-    # for hops=2 (an odd block count leaves one block queued but not yet
-    # dispatched), so the checkpoint must carry a non-empty queue depth
-    # and the resumed dispatcher must consume it in its first cycle.
+@pytest.mark.parametrize("pipeline", [1, 2])
+def test_checkpoint_resume_under_pipeline(tmp_path, pipeline):
+    # The sample-exact-continuation contract must hold when both servers
+    # run synchronous or pipelined dispatch (pipeline=2), with the
+    # checkpoint's frame/skip accounting exact at the cut.
     import json as _json
 
-    from upmix_tpu.models.streaming import PallasStreamPool
-    from upmix_tpu.serve_stream import StreamSession
+    from upmix.serve_stream import StreamSession
 
     def pool_factory():
-        return PallasStreamPool(_cfg(), HW, n_streams=8, group=8,
-                                interpret=True)
+        return BatchStreamingUpmixer(_cfg(), HW, n_streams=8)
 
-    srv_kw = dict(lockstep=True, hops=hops, pipeline=pipeline)
+    srv_kw = dict(lockstep=True, pipeline=pipeline)
     n_blocks, cut = 12, 5
-    L, R = make_stereo(n_blocks * HW, SR, seed=300 + hops * 10 + pipeline)
+    L, R = make_stereo(n_blocks * HW, SR, seed=310 + pipeline)
     L, R = L.astype(np.float32), R.astype(np.float32)
     with StreamServer(pool_factory(), **srv_kw) as srv_ref:
         ref = stream_client(*srv_ref.address, L, R)
 
-    dispatched = (cut // hops) * hops  # blocks the cycles could consume
-    queued = cut - dispatched  # mid-cycle depth (1 when hops=2)
+    dispatched = cut  # every block a lockstep cycle of its own
+    queued = 0
     skip = _warmup_skip()
     path = str(tmp_path / "hp.npz")
 
@@ -956,16 +809,13 @@ def test_checkpoint_resume_under_hops_and_pipeline(tmp_path, hops, pipeline):
     sess = StreamSession(*srv_a.address)
     for b in range(cut):
         sess.send_block(L[b * HW : (b + 1) * HW], R[b * HW : (b + 1) * HW])
-    # Only the frames due after the `dispatched` whole cycles can arrive
-    # (the mid-cycle block sits queued); reading them also forces the
-    # pipeline=2 in-flight outputs out.
+    # Reading the frames due after the dispatched cycles also forces
+    # the pipeline=2 in-flight outputs out.
     due = max(0, dispatched * HW - skip)
     part1 = (sess.recv_frames(due) if due
              else np.zeros((0, sess.out_channels), "<f4"))
-    # The mid-cycle block may still be in TCP flight after the read
-    # returns (it belongs to no dispatched cycle); wait for the reader
-    # thread to ack it so the checkpoint deterministically captures the
-    # queue depth this test asserts on.
+    # Wait for the reader thread to ack every sent block so the
+    # checkpoint deterministically captures the counters asserted on.
     import time as _time
 
     deadline = _time.time() + 10.0
@@ -976,8 +826,8 @@ def test_checkpoint_resume_under_hops_and_pipeline(tmp_path, hops, pipeline):
     sess.close()
     srv_a.close()
 
-    # The checkpoint recorded the mid-cycle queue depth and T-aware
-    # frame/skip accounting.
+    # The checkpoint recorded the queue depth and the frame/skip
+    # accounting.
     saved = np.load(path, allow_pickle=False)
     meta = _json.loads(saved["__meta__"].tobytes().decode("utf-8"))
     s0 = meta["sessions"][0]
@@ -1004,28 +854,6 @@ def test_checkpoint_resume_under_hops_and_pipeline(tmp_path, hops, pipeline):
     np.testing.assert_array_equal(got, np.column_stack(ref))
 
 
-def test_multihop_artifact_server_requires_matching_hops(tmp_path):
-    # An AOT pool exported with hops=T carries ONLY the multi-hop
-    # program; a server constructed with the default hops=1 must fail
-    # AT CONSTRUCTION with the actionable error (regression: it used to
-    # construct, then the dispatcher thread died on its first cycle and
-    # every client hung on a silent output queue).
-    from upmix_tpu import aot
-
-    path = str(tmp_path / "pool_t2.upmixaot")
-    aot.save_stream_pool(
-        path, _cfg(), HW, 8, group=8, platforms=["cpu"], interpret=True,
-        hops=2,
-    )
-    art = aot.load(path)
-    with pytest.raises(ValueError, match="serve-hops"):
-        StreamServer(art, lockstep=True)
-    # The matching hops constructs (and is exercised end-to-end by
-    # test_hops_server_round_trip_with_drain_padding on a live pool).
-    srv = StreamServer(art, lockstep=True, hops=2)
-    srv.close()
-
-
 def test_close_releases_port_with_live_clients():
     # close() must sweep end-of-stream sentinels: without them each
     # connection's writer thread blocks in outq.get(), _serve_conn
@@ -1035,7 +863,7 @@ def test_close_releases_port_with_live_clients():
     import socket as _socket
     import time as _time
 
-    from upmix_tpu.serve_stream import StreamSession
+    from upmix.serve_stream import StreamSession
 
     srv_a = StreamServer(
         BatchStreamingUpmixer(_cfg(), HW, n_streams=4), lockstep=True
@@ -1093,7 +921,7 @@ def test_dispatcher_death_fails_sessions_fast():
         def boom(*a, **k):
             raise RuntimeError("injected pool failure")
 
-        srv._push = boom
+        srv.pool.push_blocks = boom
         L, R = make_stereo(6 * HW, SR, seed=80)
         errs = []
 
@@ -1137,7 +965,7 @@ def test_stopping_server_refuses_admission_mid_handshake():
     # sweep must be refused by _alloc_slot's under-lock _stop check —
     # otherwise it gets a slot nothing will ever drain and hangs.
     # Simulated directly: _stop set while the listener is still open.
-    from upmix_tpu.serve_stream import StreamSession
+    from upmix.serve_stream import StreamSession
 
     pool = BatchStreamingUpmixer(_cfg(), HW, n_streams=4)
     srv = StreamServer(pool, lockstep=True).start()
@@ -1164,8 +992,8 @@ def test_mesh_sharded_pool_server():
     # the single-stream engine exactly as on an unsharded pool.
     import jax
 
-    from upmix_tpu.parallel import make_mesh
-    from upmix_tpu.serve_stream import run_stream_server
+    from upmix.parallel import make_mesh
+    from upmix.serve_stream import run_stream_server
 
     if len(jax.devices()) < 2:
         pytest.skip("needs >= 2 devices")
@@ -1190,7 +1018,7 @@ def test_checkpoint_restores_across_mesh_topologies(tmp_path):
     # The resumed session must be the exact continuation either way.
     import jax
 
-    from upmix_tpu.serve_stream import StreamSession
+    from upmix.serve_stream import StreamSession
 
     if len(jax.devices()) < 2:
         pytest.skip("needs >= 2 devices")

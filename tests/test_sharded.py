@@ -7,9 +7,9 @@ import jax
 import numpy as np
 import pytest
 
-from upmix_tpu.config import UpmixConfig
-from upmix_tpu.oracle import oracle_multiband
-from upmix_tpu.parallel import ShardedUpmixer, build_sharded_offline_fn, make_mesh, sequence_plan
+from upmix.config import UpmixConfig
+from upmix.oracle import oracle_multiband
+from upmix.parallel import ShardedUpmixer, build_sharded_offline_fn, make_mesh, sequence_plan
 
 from helpers import make_stereo, snr_db
 
@@ -54,7 +54,7 @@ def test_seq_sharded_parity_vs_oracle():
 def test_seq_sharded_matches_single_device_pipeline():
     # Halo correctness: the 8-way sharded result must match the unsharded
     # JAX pipeline to float32 tolerance at every shard boundary.
-    from upmix_tpu.models.offline import upmix_offline
+    from upmix.models.offline import upmix_offline
 
     cfg = _cfg()
     mesh = make_mesh({"seq": 8})
@@ -150,19 +150,25 @@ def test_dp_sp_mm_kernel_batch():
     assert snr_db(ref[0], np.asarray(y[0, 0])) > 60.0
 
 
-def test_seq_sharded_mm_with_pallas_parity():
-    # Fused pallas kernels inside shard_map (interpret mode on the CPU
-    # mesh): the local batch rides the kernel's segment axis.
+def test_seq_sharded_mm_all_channels_parity():
+    # The matmul fold inside shard_map: every channel of both batch rows
+    # holds the oracle bar and matches the unsharded 'mm' pipeline.
+    from upmix.models.offline import Upmixer
+
     cfg = _cfg()
     mesh = make_mesh({"data": 2, "seq": 4})
-    su = ShardedUpmixer(cfg, mesh, kernel="mm", use_pallas=True)
+    su = ShardedUpmixer(cfg, mesh, kernel="mm")
     L, R = make_stereo(5000, cfg.sr, seed=8)
     L32, R32 = L.astype(np.float32), R.astype(np.float32)
-    ref = oracle_multiband(L32, R32, cfg)
     x = np.stack([np.stack([L32, R32]), np.stack([R32, L32])])
-    y = su.process_batch(x)
-    for c in range(3):
-        assert snr_db(ref[c], np.asarray(y[0, c])) > 60.0
+    y = np.asarray(su.process_batch(x))
+    single = Upmixer(cfg, kernel="mm")
+    for b in range(2):
+        ref = oracle_multiband(x[b, 0], x[b, 1], cfg)
+        one = single.process_np(x[b, 0], x[b, 1])
+        for c in range(3):
+            assert snr_db(ref[c], y[b, c]) > 60.0
+            assert snr_db(one[c], y[b, c]) > 100.0
 
 
 def test_batch_streaming_over_data_mesh():
@@ -170,9 +176,9 @@ def test_batch_streaming_over_data_mesh():
     # free scale-out; results must match the unsharded pool bit-for-bit.
     import numpy as np
 
-    from upmix_tpu.config import UpmixConfig
-    from upmix_tpu.models.streaming import BatchStreamingUpmixer
-    from upmix_tpu.parallel import make_mesh
+    from upmix.config import UpmixConfig
+    from upmix.models.streaming import BatchStreamingUpmixer
+    from upmix.parallel import make_mesh
 
     HW = 256
     cfg = UpmixConfig.streaming([0.0, 400.0, 1600.0], sr=8000.0, hw_block_size=HW)
@@ -201,7 +207,7 @@ def test_batch_streaming_over_data_mesh():
 def test_local_file_shard_round_robin():
     # The multi-host offline convention: paths[i::n] per process,
     # balanced and stable under appends (parallel/distributed.py).
-    from upmix_tpu.parallel import local_file_shard
+    from upmix.parallel import local_file_shard
 
     paths = [f"f{i}.wav" for i in range(10)]
     shards = [local_file_shard(paths, index=i, count=3) for i in range(3)]
@@ -232,7 +238,7 @@ def test_init_distributed_single_process():
     code = f"""
 import jax
 jax.config.update("jax_platforms", "cpu")
-from upmix_tpu.parallel import (
+from upmix.parallel import (
     init_distributed, is_initialized, process_count, process_index,
     local_file_shard,
 )
@@ -258,7 +264,7 @@ print("DIST_OK")
     assert "DIST_OK" in out.stdout
 
 
-# -- production geometry (VERDICT round-3 item 1) ------------------------
+# -- production geometry ------------------------------------------------
 # The default 44.1 kHz config's largest bucket is a 65536-sample block
 # with a 49,152-sample halo (block - hop at 75% overlap) — by far the
 # largest communication footprint the framework ships.  These tests run
@@ -318,11 +324,11 @@ def test_production_geometry_short_input_padding():
 
 
 def test_production_geometry_dp_sp_mm_kernel():
-    # data x seq mesh with the matmul-transform kernels (the TPU path's
-    # program structure, pallas interpreted off) at full geometry.
+    # data x seq mesh with the matmul-transform kernels (the GPU path's
+    # program structure) at full geometry.
     cfg = _prod_cfg()
     mesh = make_mesh({"data": 2, "seq": 4})
-    su = ShardedUpmixer(cfg, mesh, kernel="mm", use_pallas=False)
+    su = ShardedUpmixer(cfg, mesh, kernel="mm")
     rng = np.random.default_rng(5)
     x = (rng.standard_normal((2, 2, 2**17)) * 0.3).astype(np.float32)
     y = np.asarray(su.process_batch(x))
@@ -370,3 +376,25 @@ def test_data_only_mesh_arbitrary_overlap():
     ref = oracle_multiband(L32, R32, cfg)
     for r, g in zip(ref, got):
         assert snr_db(r, np.asarray(g)) > 60.0
+
+
+@pytest.mark.parametrize(
+    "axes", [{"seq": 4}, {"data": 2, "seq": 2}, {"data": 4}],
+    ids=["seq4", "data2_seq2", "data4"],
+)
+def test_sharded_output_spans_every_mesh_device(axes):
+    # The result stays distributed: a batch run on a 4-device mesh comes
+    # back with its shards on 4 distinct devices (nothing gathered onto
+    # device 0), and matches the oracle.
+    cfg = _cfg()
+    su = ShardedUpmixer(cfg, make_mesh(axes), kernel="mm")
+    batch = axes.get("data", 1)
+    rng = np.random.default_rng(12)
+    x = (rng.standard_normal((batch, 2, 6000)) * 0.3).astype(np.float32)
+    y = su.process_batch(x)
+    assert len({s.device for s in y.addressable_shards}) == 4
+    y = np.asarray(y)
+    for b in range(batch):
+        ref = oracle_multiband(x[b, 0], x[b, 1], cfg)
+        for ch in range(3):
+            assert snr_db(ref[ch], y[b, ch]) > 60.0

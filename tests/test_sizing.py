@@ -2,7 +2,7 @@
 
 import pytest
 
-from upmix_tpu.config import (
+from upmix.config import (
     BandSpec,
     UpmixConfig,
     compute_block_size_for_low_freq,

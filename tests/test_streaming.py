@@ -6,14 +6,14 @@ push_block vs scan equivalence, warmup latency, and state checkpointing
 import numpy as np
 import pytest
 
-from upmix_tpu.config import UpmixConfig
-from upmix_tpu.models.streaming import (
+from upmix.config import UpmixConfig
+from upmix.models.streaming import (
     WARMUP_BLOCKS,
     StreamingUpmixer,
     init_stream_state,
     mix_stereo_sum,
 )
-from upmix_tpu.oracle.reference import oracle_stream_multiband
+from upmix.oracle.reference import oracle_stream_multiband
 
 from helpers import make_stereo, snr_db
 
@@ -118,7 +118,7 @@ def test_stream_vs_offline_parity_after_latency():
     # Offline and streaming paths share kernels; after the 4-block warmup
     # the streaming stereo_sum output must track the offline stereo_sum mix
     # of the same config (SURVEY.md §4 "streaming parity").
-    from upmix_tpu.models.offline import Upmixer
+    from upmix.models.offline import Upmixer
 
     cfg = _stream_cfg()
     L, R = make_stereo(24 * HW, cfg.sr, seed=5)
@@ -213,8 +213,8 @@ def test_stream_parity_50pct_overlap():
 def test_stream_mixed_k_rejected():
     # Bands with different block/hop ratios cannot share the history
     # window — must be rejected, not silently wrong.
-    from upmix_tpu.config import BandSpec
-    from upmix_tpu.models.streaming import stream_warmup_blocks
+    from upmix.config import BandSpec
+    from upmix.models.streaming import stream_warmup_blocks
 
     b1 = BandSpec(f_low=0.0, f_high=400.0, sr=8000.0, block_size=512, overlap=0.75)
     b2 = BandSpec(f_low=400.0, f_high=4000.0, sr=8000.0, block_size=256, overlap=0.5)
@@ -256,7 +256,7 @@ def test_streaming_random_config_fuzz():
 def test_batch_streaming_matches_independent_streams():
     # B concurrent sessions through one vmapped dispatch must match B
     # independent single-stream engines on the same blocks.
-    from upmix_tpu.models.streaming import BatchStreamingUpmixer
+    from upmix.models.streaming import BatchStreamingUpmixer
 
     cfg = _stream_cfg()
     B, n_blocks = 3, 10
@@ -285,7 +285,7 @@ def test_batch_streaming_matches_independent_streams():
 def test_batch_streaming_slot_churn():
     # Resetting one slot replays warmup for that stream only; the other
     # slots are unaffected (bit-identical to an untouched run).
-    from upmix_tpu.models.streaming import BatchStreamingUpmixer
+    from upmix.models.streaming import BatchStreamingUpmixer
 
     cfg = _stream_cfg()
     B, n_blocks = 2, 12
@@ -313,7 +313,7 @@ def test_batch_streaming_slot_churn():
 
 
 def test_batch_streaming_bad_shape_raises():
-    from upmix_tpu.models.streaming import BatchStreamingUpmixer
+    from upmix.models.streaming import BatchStreamingUpmixer
 
     cfg = _stream_cfg()
     eng = BatchStreamingUpmixer(cfg, HW, n_streams=2)
@@ -326,7 +326,7 @@ def test_batch_streaming_bad_shape_raises():
 def test_batch_streaming_checkpoint_roundtrip(tmp_path):
     # The pool's state pytree is the checkpoint format, exactly like the
     # single-stream engine: orbax round-trip + bit-identical resume.
-    from upmix_tpu.models.streaming import BatchStreamingUpmixer
+    from upmix.models.streaming import BatchStreamingUpmixer
 
     orbax = pytest.importorskip("orbax.checkpoint")
     import jax
@@ -355,7 +355,7 @@ def test_batch_streaming_checkpoint_roundtrip(tmp_path):
 
 
 def test_batch_streaming_reset_bounds_checked():
-    from upmix_tpu.models.streaming import BatchStreamingUpmixer
+    from upmix.models.streaming import BatchStreamingUpmixer
 
     cfg = _stream_cfg()
     pool = BatchStreamingUpmixer(cfg, HW, n_streams=4)
@@ -367,216 +367,80 @@ def test_batch_streaming_reset_bounds_checked():
 
 
 # ---------------------------------------------------------------------------
-# PallasStreamPool: the single-launch serving-pool kernel
-# (ops/pallas_pool.py), run in interpret mode on CPU.
+# The serving pool (make_stream_pool -> BatchStreamingUpmixer): oracle
+# parity, slot churn, snapshots, sharding.
 # ---------------------------------------------------------------------------
 
 
-def test_pallas_pool_matches_xla_pool():
-    # The pallas pool kernel (row-stacked direct-DFT + in-kernel fold)
-    # must match the vmapped XLA engine block-for-block, including the
-    # warmup silence, at bf16x3 precision (>80 dB).
-    from upmix_tpu.models.streaming import BatchStreamingUpmixer, PallasStreamPool
+def _pool_blocks(seed, n_blocks, S, hw=HW):
+    rng = np.random.default_rng(seed)
+    return rng.standard_normal((n_blocks, S, 2, hw)).astype(np.float32) * 0.3
+
+
+def test_batch_pool_matches_oracle():
+    # Every stream of the pool, run block by block, holds the 60 dB bar
+    # against the C++-semantics streaming oracle (stereo_sum mix).
+    from upmix.models.streaming import BatchStreamingUpmixer
 
     cfg = _stream_cfg()
-    S, n_blocks = 8, 10
-    rng = np.random.default_rng(41)
-    blocks = rng.standard_normal((n_blocks, S, 2, HW)).astype(np.float32) * 0.3
-
-    ref = BatchStreamingUpmixer(cfg, HW, n_streams=S)
-    pool = PallasStreamPool(cfg, HW, n_streams=S, group=8)
-    for t in range(n_blocks):
-        rc, rls, rrs = ref.push_blocks(blocks[t, :, 0], blocks[t, :, 1])
-        pc, pls, prs = pool.push_blocks(blocks[t, :, 0], blocks[t, :, 1])
-        want = np.stack([np.asarray(rc), np.asarray(rls), np.asarray(rrs)])
-        got = np.stack([np.asarray(pc), np.asarray(pls), np.asarray(prs)])
-        if t < pool.warmup_blocks - 1:
-            assert np.abs(got).max() == 0.0, f"block {t} not silent in warmup"
-        if np.abs(want).max() > 0:
-            assert snr_db(want, got) > 80.0, f"block {t}"
+    S, n_blocks = 4, 12
+    blocks = _pool_blocks(41, n_blocks, S)
+    pool = BatchStreamingUpmixer(cfg, HW, n_streams=S)
+    outs = [pool.push_blocks(b[:, 0], b[:, 1]) for b in blocks]
+    lcr = np.stack([np.stack([np.asarray(o) for o in t]) for t in outs])
+    for i in range(S):
+        L = blocks[:, i, 0].reshape(-1)
+        R = blocks[:, i, 1].reshape(-1)
+        ref_l, ref_r = oracle_stream_multiband(L, R, cfg, HW)
+        c, ls, rs = (lcr[:, k, i].reshape(-1) for k in range(3))
+        assert snr_db(ref_l, ls + 0.5 * c) > 60.0, f"stream {i}"
+        assert snr_db(ref_r, rs + 0.5 * c) > 60.0, f"stream {i}"
 
 
-def test_pallas_pool_multi_group_slot_churn():
-    # n_streams > group exercises the grid (several groups per launch);
-    # resetting one slot replays warmup there and leaves others
-    # bit-identical.
-    from upmix_tpu.models.streaming import PallasStreamPool
+def test_batch_pool_multi_slot_churn():
+    # Resetting one slot of a wider pool replays warmup there and leaves
+    # the slots on either side bit-identical.
+    from upmix.models.streaming import BatchStreamingUpmixer
 
     cfg = _stream_cfg()
     S, n_blocks = 16, 12
-    rng = np.random.default_rng(42)
-    blocks = rng.standard_normal((n_blocks, S, 2, HW)).astype(np.float32) * 0.3
+    blocks = _pool_blocks(42, n_blocks, S)
 
-    plain = PallasStreamPool(cfg, HW, n_streams=S, group=8)
+    plain = BatchStreamingUpmixer(cfg, HW, n_streams=S)
     plain_out = [plain.push_blocks(blk[:, 0], blk[:, 1]) for blk in blocks]
 
-    churn = PallasStreamPool(cfg, HW, n_streams=S, group=8)
+    churn = BatchStreamingUpmixer(cfg, HW, n_streams=S)
     half = n_blocks // 2
     for blk in blocks[:half]:
         churn.push_blocks(blk[:, 0], blk[:, 1])
     churn.reset_streams([9])
     outs = [churn.push_blocks(blk[:, 0], blk[:, 1]) for blk in blocks[half:]]
     for t, (c, ls, rs) in enumerate(outs):
-        np.testing.assert_array_equal(
-            np.asarray(c[0]), np.asarray(plain_out[half + t][0][0])
-        )
-        np.testing.assert_array_equal(
-            np.asarray(c[15]), np.asarray(plain_out[half + t][0][15])
-        )
+        for keep in (0, 8, 10, 15):
+            np.testing.assert_array_equal(
+                np.asarray(c[keep]), np.asarray(plain_out[half + t][0][keep])
+            )
         if t < churn.warmup_blocks - 1:
             assert np.abs(np.asarray(c[9])).max() == 0.0
 
 
-def test_pallas_pool_multi_hop_matches_sequential():
-    # Temporal batching (push_blocks_multi / pool_step_lcr hops=T): T
-    # consecutive blocks in ONE kernel launch run the same per-hop op
-    # sequence with the OLA carries chained as values instead of HBM
-    # round trips.  Must match T sequential push_blocks to float
-    # tolerance (FMA fusion context differs — the quarters-vs-window
-    # contract), including warmup gating that crosses a multi-hop call
-    # boundary (warmup=4; hops=6 covers it mid-call).
-    from upmix_tpu.models.streaming import PallasStreamPool
-
-    cfg = _stream_cfg()
-    S, n_blocks = 8, 12
-    rng = np.random.default_rng(43)
-    blocks = rng.standard_normal((n_blocks, S, 2, HW)).astype(np.float32) * 0.3
-
-    seq = PallasStreamPool(cfg, HW, n_streams=S, group=8)
-    seq_out = [seq.push_blocks(blk[:, 0], blk[:, 1]) for blk in blocks]
-    warm = seq.warmup_blocks
-    seq_t = np.asarray(seq.state["t"]).copy()
-    extra = rng.standard_normal((S, 2, HW)).astype(np.float32) * 0.3
-    want_extra = [
-        np.asarray(o) for o in seq.push_blocks(extra[:, 0], extra[:, 1])
-    ]
-
-    for hops in (2, 6):
-        multi = PallasStreamPool(cfg, HW, n_streams=S, group=8)
-        for t0 in range(0, n_blocks, hops):
-            xl = np.concatenate(
-                [blocks[t0 + i, :, 0] for i in range(hops)], axis=1
-            )
-            xr = np.concatenate(
-                [blocks[t0 + i, :, 1] for i in range(hops)], axis=1
-            )
-            out = multi.push_blocks_multi(xl, xr)
-            for i in range(hops):
-                t = t0 + i
-                got = np.stack(
-                    [np.asarray(o[:, i * HW : (i + 1) * HW]) for o in out]
-                )
-                want = np.stack([np.asarray(o) for o in seq_out[t]])
-                if t < warm - 1:
-                    assert np.abs(got).max() == 0.0, (
-                        f"hops={hops} block {t} not silent in warmup"
-                    )
-                if np.abs(want).max() > 0:
-                    assert snr_db(want, got) > 100.0, f"hops={hops} block {t}"
-        # The state advanced identically: one more SINGLE-HOP block
-        # pushed through the multi-hop-advanced pool must agree with the
-        # sequential pool's continuation (the two step programs share
-        # the live state pytree).
-        np.testing.assert_array_equal(np.asarray(multi.state["t"]), seq_t)
-        got = multi.push_blocks(extra[:, 0], extra[:, 1])
-        for w, g in zip(want_extra, got):
-            assert snr_db(w, np.asarray(g)) > 100.0, (
-                f"hops={hops} single-hop continuation diverged"
-            )
-
-
-def test_pallas_pool_multi_hop_runner_and_errors():
-    # make_sustained_runner(hops=T) consumes [n_blocks//T, 2, S, T*hw]
-    # slabs and matches the hops=1 runner; the window layout and bad
-    # shapes are rejected.
-    import jax.numpy as jnp
-
-    from upmix_tpu.models.streaming import PallasStreamPool
-
-    cfg = _stream_cfg()
-    S, n_blocks = 8, 8
-    rng = np.random.default_rng(44)
-    blocks = rng.standard_normal((n_blocks, 2, S, HW)).astype(np.float32) * 0.3
-
-    pool = PallasStreamPool(cfg, HW, n_streams=S, group=8)
-    run1, fresh = pool.make_sustained_runner(n_blocks, unroll=2)
-    _, cs1 = run1(fresh(), jnp.asarray(blocks))
-
-    run2, fresh2 = pool.make_sustained_runner(n_blocks, unroll=2, hops=4)
-    slabs = (
-        blocks.reshape(n_blocks // 4, 4, 2, S, HW)
-        .transpose(0, 2, 3, 1, 4)
-        .reshape(n_blocks // 4, 2, S, 4 * HW)
-    )
-    _, cs2 = run2(fresh2(), jnp.asarray(slabs))
-    want = np.asarray(cs1[-1])  # last emitted C block
-    got = np.asarray(cs2[-1][:, -HW:])
-    assert snr_db(want, got) > 100.0
-
-    w = PallasStreamPool(cfg, HW, n_streams=S, group=8, layout="window")
-    with pytest.raises(ValueError, match="quarters"):
-        w._get_multi_step(2)
-    with pytest.raises(ValueError, match="multiple of hops"):
-        pool.make_sustained_runner(6, hops=4)
-    with pytest.raises(ValueError, match="push_blocks_multi expects"):
-        pool.push_blocks_multi(
-            np.zeros((S, HW + 1), np.float32), np.zeros((S, HW + 1), np.float32)
-        )
-
-
-def test_pallas_pool_multi_hop_spectral():
-    # The spectral-OLA dataflow chains its packed carry across hops the
-    # same way.
-    from upmix_tpu.models.streaming import PallasStreamPool
-
-    cfg = _stream_cfg()
-    S, n_blocks, hops = 8, 8, 4
-    rng = np.random.default_rng(45)
-    blocks = rng.standard_normal((n_blocks, S, 2, HW)).astype(np.float32) * 0.3
-
-    seq = PallasStreamPool(cfg, HW, n_streams=S, group=8, ola="spectral")
-    seq_out = [seq.push_blocks(blk[:, 0], blk[:, 1]) for blk in blocks]
-
-    multi = PallasStreamPool(cfg, HW, n_streams=S, group=8, ola="spectral")
-    for t0 in range(0, n_blocks, hops):
-        xl = np.concatenate(
-            [blocks[t0 + i, :, 0] for i in range(hops)], axis=1
-        )
-        xr = np.concatenate(
-            [blocks[t0 + i, :, 1] for i in range(hops)], axis=1
-        )
-        out = multi.push_blocks_multi(xl, xr)
-        for i in range(hops):
-            t = t0 + i
-            got = np.stack(
-                [np.asarray(o[:, i * HW : (i + 1) * HW]) for o in out]
-            )
-            want = np.stack([np.asarray(o) for o in seq_out[t]])
-            if np.abs(want).max() > 0:
-                assert snr_db(want, got) > 100.0, f"spectral block {t}"
-
-
-def test_pallas_pool_snapshot_resume():
-    # snapshot() is the checkpoint format: restoring into a fresh pool
+def test_batch_pool_snapshot_resume():
+    # snapshot() is the checkpoint format: restore() into a fresh pool
     # resumes bit-identically.
-    import jax
-    import jax.numpy as jnp
-
-    from upmix_tpu.models.streaming import PallasStreamPool
+    from upmix.models.streaming import BatchStreamingUpmixer
 
     cfg = _stream_cfg()
     S, n_blocks = 8, 8
-    rng = np.random.default_rng(43)
-    blocks = rng.standard_normal((n_blocks, S, 2, HW)).astype(np.float32) * 0.3
+    blocks = _pool_blocks(43, n_blocks, S)
 
-    pool = PallasStreamPool(cfg, HW, n_streams=S)
+    pool = BatchStreamingUpmixer(cfg, HW, n_streams=S)
     for blk in blocks[: n_blocks // 2]:
         pool.push_blocks(blk[:, 0], blk[:, 1])
     snap = pool.snapshot()
     rest = [pool.push_blocks(blk[:, 0], blk[:, 1]) for blk in blocks[n_blocks // 2 :]]
 
-    pool2 = PallasStreamPool(cfg, HW, n_streams=S)
-    pool2.state = jax.tree.map(jnp.asarray, snap)
+    pool2 = BatchStreamingUpmixer(cfg, HW, n_streams=S)
+    pool2.restore(snap)
     rest2 = [pool2.push_blocks(blk[:, 0], blk[:, 1]) for blk in blocks[n_blocks // 2 :]]
     for (a, b, c), (x, y, z) in zip(rest, rest2):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(x))
@@ -584,126 +448,72 @@ def test_pallas_pool_snapshot_resume():
         np.testing.assert_array_equal(np.asarray(c), np.asarray(z))
 
 
+def test_batch_pool_extract_load_moves_a_session():
+    # extract_streams/load_streams (the serving checkpoint's unit) move a
+    # live session between slots of different pools; the moved session
+    # continues bit-identically and its neighbours are untouched.
+    from upmix.models.streaming import BatchStreamingUpmixer
+
+    cfg = _stream_cfg()
+    S, n_blocks, cut = 8, 10, 6
+    blocks = _pool_blocks(44, n_blocks, S)
+    a = BatchStreamingUpmixer(cfg, HW, n_streams=S)
+    b = BatchStreamingUpmixer(cfg, HW, n_streams=S)
+    for t in range(cut):
+        a.push_blocks(blocks[t, :, 0], blocks[t, :, 1])
+        b.push_blocks(blocks[t, :, 0], blocks[t, :, 1])
+    rows = a.extract_streams([2])
+    assert rows["history"].shape[0] == 1
+    b.load_streams([5], rows)
+    for t in range(cut, n_blocks):
+        xl, xr = blocks[t, :, 0].copy(), blocks[t, :, 1].copy()
+        ra = a.push_blocks(xl, xr)
+        xl[5], xr[5] = xl[2], xr[2]  # slot 5 of b now carries a's stream 2
+        rb = b.push_blocks(xl, xr)
+        for x, y in zip(ra, rb):
+            np.testing.assert_array_equal(np.asarray(y)[5], np.asarray(x)[2])
+            np.testing.assert_array_equal(np.asarray(y)[0], np.asarray(x)[0])
+    with pytest.raises(ValueError, match="out of range"):
+        a.extract_streams([S])
+
+
 def test_make_stream_pool_selection():
-    # On the CPU test backend, auto picks the XLA engine; forcing pallas
-    # builds the kernel pool (interpret mode); forcing xla always works;
-    # auto with a mesh routes to the hardware-proven XLA engine, while
-    # engine="pallas" with a mesh builds the shard_map'd pallas pool.
+    # Every engine name builds the vmapped XLA pool; a mesh shards it over
+    # 'data'; indivisible stream counts and unknown engines are rejected.
     import jax as _jax
 
-    from upmix_tpu.models.streaming import (
-        BatchStreamingUpmixer,
-        PallasStreamPool,
-        make_stream_pool,
-    )
+    from upmix.models.streaming import BatchStreamingUpmixer, make_stream_pool
 
     cfg = _stream_cfg()
     assert isinstance(make_stream_pool(cfg, HW, 8), BatchStreamingUpmixer)
     assert isinstance(
-        make_stream_pool(cfg, HW, 8, engine="pallas"), PallasStreamPool
-    )
-    assert isinstance(
         make_stream_pool(cfg, HW, 8, engine="xla"), BatchStreamingUpmixer
     )
     mesh = _jax.sharding.Mesh(np.array(_jax.devices()[:2]), ("data",))
-    assert isinstance(
-        make_stream_pool(cfg, HW, 16, mesh=mesh), BatchStreamingUpmixer
-    )
-    sharded = make_stream_pool(cfg, HW, 16, engine="pallas", mesh=mesh)
-    assert isinstance(sharded, PallasStreamPool)
-    assert sharded.plan.n_streams == 8  # per-shard plan
+    sharded = make_stream_pool(cfg, HW, 16, mesh=mesh)
+    assert isinstance(sharded, BatchStreamingUpmixer)
+    assert sharded.mesh is mesh
     with pytest.raises(ValueError, match="divide evenly"):
-        make_stream_pool(cfg, HW, 9, engine="pallas", mesh=mesh)
-    with pytest.raises(ValueError, match="unknown engine"):
-        make_stream_pool(cfg, HW, 8, engine="cuda")
+        make_stream_pool(cfg, HW, 9, mesh=mesh)
+    for bad in ("pallas", "cuda"):
+        with pytest.raises(ValueError, match="unknown engine"):
+            make_stream_pool(cfg, HW, 8, engine=bad)
 
 
-def test_pallas_pool_rejects_ineligible():
-    from upmix_tpu.models.streaming import PallasStreamPool
-    from upmix_tpu.ops.pallas_pool import make_pool_plan
-
-    cfg = _stream_cfg()
-    # n_streams not a multiple of the group size.
-    with pytest.raises(ValueError, match="not eligible"):
-        PallasStreamPool(cfg, HW, n_streams=12, group=8)
-    # A bucket whose direct weights exceed the bake bound.
-    assert make_pool_plan(cfg, HW, 8, weight_limit=1024) is None
-    # Bad block shape is rejected before dispatch.
-    pool = PallasStreamPool(cfg, HW, n_streams=8)
-    with pytest.raises(ValueError, match="push_blocks"):
-        pool.push_blocks(np.zeros((8, HW - 1)), np.zeros((8, HW - 1)))
-
-
-def test_pallas_pool_profiling_flags_inert_by_default():
-    # The _PROF_* attribution fabrications (scripts/bench_pool_ops.py)
-    # must default OFF, every variant must still trace (guards the
-    # bench scripts against rot), and flipping them must not perturb
-    # the production path once restored.
-    import upmix_tpu.ops.pallas_pool as pp
-    from upmix_tpu.ops.pallas_pool import make_pool_plan, pool_step_lcr
-
-    FLAGS = ("_PROF_NODOT", "_PROF_NOFOLD", "_PROF_NOMASK", "_PROF_NOW",
-             "_PROF_NOOLA")
-    assert all(getattr(pp, f) is False for f in FLAGS)
-
-    import jax.numpy as jnp
-
-    cfg = _stream_cfg()
-    plan = make_pool_plan(cfg, HW, 8, group=8)
-    assert plan is not None
-    rng = np.random.default_rng(7)
-    hist = jnp.asarray(
-        rng.standard_normal((8, plan.window)), jnp.float32
-    )
-    t = jnp.full((8,), 10, jnp.int32)
-    olas = tuple(
-        tuple(jnp.zeros((8, b.B), jnp.float32) for _ in range(3))
-        for b in plan.buckets
-    )
-
-    (ref_c, _, _), _ = pool_step_lcr(hist, hist, t, olas, plan, interpret=True)
-    combos = [
-        ("_PROF_NODOT",),
-        ("_PROF_NOMASK",),
-        ("_PROF_NOFOLD",),
-        ("_PROF_NOW", "_PROF_NOFOLD"),
-        ("_PROF_NODOT", "_PROF_NOMASK", "_PROF_NOFOLD", "_PROF_NOOLA"),
-        ("_PROF_NOW", "_PROF_NOFOLD", "_PROF_NOOLA"),
-    ]
-    for combo in combos:
-        for f in combo:
-            setattr(pp, f, True)
-        try:
-            (oc, ols, ors), no = pool_step_lcr(
-                hist, hist, t, olas, plan, interpret=True
-            )
-            assert oc.shape == ref_c.shape
-            assert np.all(np.isfinite(np.asarray(oc)))
-            assert len(no) == len(plan.buckets)
-        finally:
-            for f in FLAGS:
-                setattr(pp, f, False)
-
-    (again_c, _, _), _ = pool_step_lcr(hist, hist, t, olas, plan, interpret=True)
-    np.testing.assert_array_equal(np.asarray(ref_c), np.asarray(again_c))
-
-
-def test_pallas_pool_sharded_matches_unsharded():
-    # engine="pallas" with a mesh runs the kernel per device on its
-    # stream shard via shard_map; streams are independent, so the
-    # sharded pool must reproduce the single-device pool exactly.
+def test_batch_pool_sharded_matches_unsharded():
+    # A mesh-sharded pool runs each device on its stream shard; streams
+    # are independent, so it must reproduce the single-device pool.
     import jax as _jax
 
-    from upmix_tpu.models.streaming import PallasStreamPool
+    from upmix.models.streaming import BatchStreamingUpmixer
 
     cfg = _stream_cfg()
     S, n_blocks = 16, 8
     mesh = _jax.sharding.Mesh(np.array(_jax.devices()[:2]), ("data",))
-    rng = np.random.default_rng(11)
-    blocks = rng.standard_normal((n_blocks, S, 2, HW)).astype(np.float32) * 0.3
+    blocks = _pool_blocks(11, n_blocks, S)
 
-    plain = PallasStreamPool(cfg, HW, n_streams=S, group=8)
-    shard = PallasStreamPool(cfg, HW, n_streams=S, group=8, mesh=mesh)
+    plain = BatchStreamingUpmixer(cfg, HW, n_streams=S)
+    shard = BatchStreamingUpmixer(cfg, HW, n_streams=S, mesh=mesh)
     for t in range(n_blocks):
         a = plain.push_blocks(blocks[t, :, 0], blocks[t, :, 1])
         b = shard.push_blocks(blocks[t, :, 0], blocks[t, :, 1])
@@ -711,110 +521,11 @@ def test_pallas_pool_sharded_matches_unsharded():
             np.testing.assert_allclose(
                 np.asarray(x), np.asarray(y), atol=1e-6, rtol=0
             )
+    assert len({d for d in b[0].sharding.device_set}) == 2
     # Slot churn keeps working on the sharded pool.
     shard.reset_streams([0, 15])
     c, ls, rs = shard.push_blocks(blocks[0, :, 0], blocks[0, :, 1])
     assert np.all(np.isfinite(np.asarray(c)))
-
-
-def test_pallas_pool_quarters_matches_window():
-    # The quarters history layout (no per-block shift copy — the input
-    # block IS the newest quarter) computes the same values as the
-    # window layout, including warmup silence and slot churn mid-run.
-    # Float-level slack, not bit identity: the layouts are different
-    # XLA programs whose fusion context (e.g. opportunistic FMA) may
-    # differ at the last ulp (see test_pallas_pool_random_config_fuzz).
-    from upmix_tpu.models.streaming import PallasStreamPool
-
-    cfg = _stream_cfg()
-    S, n_blocks = 16, 12
-    rng = np.random.default_rng(29)
-    blocks = rng.standard_normal((n_blocks, S, 2, HW)).astype(np.float32) * 0.3
-
-    w = PallasStreamPool(cfg, HW, n_streams=S, group=8, layout="window")
-    q = PallasStreamPool(cfg, HW, n_streams=S, group=8, layout="quarters")
-    assert q.layout == "quarters"
-    for t in range(n_blocks):
-        if t == n_blocks // 2:
-            w.reset_streams([3, 12])
-            q.reset_streams([3, 12])
-        a = w.push_blocks(blocks[t, :, 0], blocks[t, :, 1])
-        b = q.push_blocks(blocks[t, :, 0], blocks[t, :, 1])
-        for x, y in zip(a, b):
-            x, y = np.asarray(x), np.asarray(y)
-            scale = max(np.abs(x).max(), 1.0)
-            np.testing.assert_allclose(y, x, rtol=0, atol=1e-5 * scale)
-        if t < q.warmup_blocks - 1:
-            assert np.abs(np.asarray(b[0])).max() == 0.0
-
-
-def test_pallas_pool_restore_cross_layout():
-    # restore() accepts a snapshot from EITHER history layout: the
-    # window layout's oldest hw samples are dead state, so the two
-    # formats carry the same live information and cross-restores resume
-    # exactly (same-layout) or to float tolerance (cross-layout — the
-    # layouts are different XLA programs; see the fuzz test note).
-    from upmix_tpu.models.streaming import PallasStreamPool
-
-    cfg = _stream_cfg()
-    S, n_blocks = 8, 8
-    rng = np.random.default_rng(31)
-    blocks = rng.standard_normal((n_blocks, S, 2, HW)).astype(np.float32) * 0.3
-
-    w = PallasStreamPool(cfg, HW, n_streams=S, layout="window")
-    q = PallasStreamPool(cfg, HW, n_streams=S, layout="quarters")
-    for blk in blocks[: n_blocks // 2]:
-        w.push_blocks(blk[:, 0], blk[:, 1])
-        q.push_blocks(blk[:, 0], blk[:, 1])
-    snap_w, snap_q = w.snapshot(), q.snapshot()
-
-    # window-format snapshot -> quarters pool, and vice versa.
-    q2 = PallasStreamPool(cfg, HW, n_streams=S, layout="quarters")
-    q2.restore(snap_w)
-    w2 = PallasStreamPool(cfg, HW, n_streams=S, layout="window")
-    w2.restore(snap_q)
-    # Same-layout restores keep working too.
-    q3 = PallasStreamPool(cfg, HW, n_streams=S, layout="quarters")
-    q3.restore(snap_q)
-    for blk in blocks[n_blocks // 2 :]:
-        ref = w.push_blocks(blk[:, 0], blk[:, 1])
-        for pool in (q2, w2, q3):
-            got = pool.push_blocks(blk[:, 0], blk[:, 1])
-            for x, y in zip(ref, got):
-                x, y = np.asarray(x), np.asarray(y)
-                if pool is w2:  # same layout as the reference pool
-                    np.testing.assert_array_equal(y, x)
-                else:
-                    scale = max(np.abs(x).max(), 1.0)
-                    np.testing.assert_allclose(
-                        y, x, rtol=0, atol=1e-5 * scale
-                    )
-
-
-def test_pallas_pool_quarters_sharded():
-    # layout="quarters" composes with mesh sharding (tuple-of-quarters
-    # state leaves shard over 'data' like every other leaf).
-    import jax as _jax
-
-    from upmix_tpu.models.streaming import PallasStreamPool
-
-    cfg = _stream_cfg()
-    S, n_blocks = 16, 8
-    mesh = _jax.sharding.Mesh(np.array(_jax.devices()[:2]), ("data",))
-    rng = np.random.default_rng(37)
-    blocks = rng.standard_normal((n_blocks, S, 2, HW)).astype(np.float32) * 0.3
-
-    plain = PallasStreamPool(cfg, HW, n_streams=S, group=8, layout="quarters")
-    shard = PallasStreamPool(
-        cfg, HW, n_streams=S, group=8, mesh=mesh, layout="quarters"
-    )
-    for t in range(n_blocks):
-        a = plain.push_blocks(blocks[t, :, 0], blocks[t, :, 1])
-        b = shard.push_blocks(blocks[t, :, 0], blocks[t, :, 1])
-        for x, y in zip(a, b):
-            np.testing.assert_allclose(
-                np.asarray(x), np.asarray(y), atol=1e-6, rtol=0
-            )
 
 
 def _nan_isolation_check(make_pool):
@@ -848,47 +559,48 @@ def _nan_isolation_check(make_pool):
 
 
 def test_batch_pool_nan_stream_isolation():
-    from upmix_tpu.models.streaming import BatchStreamingUpmixer
+    from upmix.models.streaming import BatchStreamingUpmixer
 
     _nan_isolation_check(
         lambda cfg: BatchStreamingUpmixer(cfg, HW, n_streams=8)
     )
 
 
-def test_pallas_pool_nan_stream_isolation():
-    from upmix_tpu.models.streaming import PallasStreamPool
+def test_batch_pool_sharded_nan_stream_isolation():
+    import jax as _jax
 
+    from upmix.models.streaming import BatchStreamingUpmixer
+
+    mesh = _jax.sharding.Mesh(np.array(_jax.devices()[:2]), ("data",))
     _nan_isolation_check(
-        lambda cfg: PallasStreamPool(cfg, HW, n_streams=8, group=8)
+        lambda cfg: BatchStreamingUpmixer(cfg, HW, n_streams=8, mesh=mesh)
     )
 
 
-def test_pallas_pool_checkpoint_with_orbax(tmp_path):
-    # The pallas pool's snapshot pytree round-trips through a real
-    # checkpointing library, like the XLA pool's (SURVEY.md §5
-    # checkpoint/resume) — restoring resumes bit-identically.
+def test_batch_pool_checkpoint_with_orbax(tmp_path):
+    # The sharded pool's snapshot pytree round-trips through a real
+    # checkpointing library (SURVEY.md §5 checkpoint/resume); restore()
+    # re-shards it and the pool resumes bit-identically.
     orbax = pytest.importorskip("orbax.checkpoint")
-    import jax
-    import jax.numpy as jnp
+    import jax as _jax
 
-    from upmix_tpu.models.streaming import PallasStreamPool
+    from upmix.models.streaming import BatchStreamingUpmixer
 
     cfg = _stream_cfg()
     S, n_blocks = 8, 8
-    rng = np.random.default_rng(47)
-    blocks = rng.standard_normal((n_blocks, S, 2, HW)).astype(np.float32) * 0.3
+    mesh = _jax.sharding.Mesh(np.array(_jax.devices()[:2]), ("data",))
+    blocks = _pool_blocks(47, n_blocks, S)
 
-    pool = PallasStreamPool(cfg, HW, n_streams=S)
+    pool = BatchStreamingUpmixer(cfg, HW, n_streams=S, mesh=mesh)
     for blk in blocks[: n_blocks // 2]:
         pool.push_blocks(blk[:, 0], blk[:, 1])
     ckptr = orbax.PyTreeCheckpointer()
-    path = tmp_path / "pallas_pool_ckpt"
+    path = tmp_path / "pool_ckpt"
     ckptr.save(path, pool.snapshot())
     rest = [pool.push_blocks(blk[:, 0], blk[:, 1]) for blk in blocks[n_blocks // 2 :]]
 
-    pool2 = PallasStreamPool(cfg, HW, n_streams=S)
-    restored = ckptr.restore(path)
-    pool2.state = jax.tree.map(jnp.asarray, restored)
+    pool2 = BatchStreamingUpmixer(cfg, HW, n_streams=S, mesh=mesh)
+    pool2.restore(ckptr.restore(path))
     rest2 = [pool2.push_blocks(blk[:, 0], blk[:, 1]) for blk in blocks[n_blocks // 2 :]]
     for (a, b, c), (x, y, z) in zip(rest, rest2):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(x))
@@ -896,18 +608,14 @@ def test_pallas_pool_checkpoint_with_orbax(tmp_path):
         np.testing.assert_array_equal(np.asarray(c), np.asarray(z))
 
 
-def test_pallas_pool_random_config_fuzz():
-    # Deterministic bounded fuzz over pool-eligible streaming configs:
-    # random edges, overlap in {0.5, 0.75}, hw blocks — the pallas pool
-    # (interpret) must match the vmapped XLA pool on every draw,
-    # covering both framing paths (grouped P%Kr==0 and one-group-per-
-    # pass) and both fold tails (P==1 no-tail vs L>B).
-    from upmix_tpu.models.streaming import BatchStreamingUpmixer, PallasStreamPool
-    from upmix_tpu.ops.pallas_pool import make_pool_plan
+def test_batch_pool_random_config_fuzz():
+    # Deterministic bounded fuzz over streaming configs: random edges,
+    # overlap in {0.5, 0.75}, hw blocks — every stream of the pool must
+    # hold the 60 dB bar against the streaming oracle on every draw.
+    from upmix.models.streaming import BatchStreamingUpmixer
 
     rng = np.random.default_rng(977)
-    eligible = 0
-    for trial in range(8):
+    for trial in range(6):
         sr = float(rng.choice([8000, 16000]))
         n_edges = int(rng.integers(1, 4))
         edges = [0.0] + sorted(
@@ -919,234 +627,38 @@ def test_pallas_pool_random_config_fuzz():
             edges, sr=sr, overlap=overlap, max_block_size=hw * 2,
             synthesis="analysis", bin_rounding="cpp",
         )
-        S = 8
-        if make_pool_plan(cfg, hw, S, group=8) is None:
-            continue
-        eligible += 1
-        blocks = (
-            np.random.default_rng(200 + trial)
-            .standard_normal((6, S, 2, hw))
-            .astype(np.float32)
-            * 0.3
-        )
-        ref = BatchStreamingUpmixer(cfg, hw, n_streams=S)
-        pool = PallasStreamPool(cfg, hw, n_streams=S, group=8)  # quarters
-        wpool = PallasStreamPool(cfg, hw, n_streams=S, group=8,
-                                 layout="window")
-        for t in range(6):
-            rc, rls, rrs = ref.push_blocks(blocks[t, :, 0], blocks[t, :, 1])
-            pc, pls, prs = pool.push_blocks(blocks[t, :, 0], blocks[t, :, 1])
-            wc, wls, wrs = wpool.push_blocks(blocks[t, :, 0], blocks[t, :, 1])
-            want = np.stack([np.asarray(x) for x in (rc, rls, rrs)])
-            got = np.stack([np.asarray(x) for x in (pc, pls, prs)])
-            # The two history layouts compute the same values on every
-            # draw (covers nq=2 at 50% overlap, cross-quarter spans,
-            # and the unaligned-hop base path of _read_span).  Bit
-            # identity held under the old always-donating jit but is
-            # not a semantic contract: the layouts are DIFFERENT XLA
-            # programs, and fusion context (e.g. opportunistic FMA)
-            # may differ at the last ulp — allow float-level slack.
-            gotw = np.stack([np.asarray(x) for x in (wc, wls, wrs)])
-            scale = max(np.abs(gotw).max(), 1.0)
-            np.testing.assert_allclose(
-                got, gotw, rtol=0, atol=1e-5 * scale
+        S, n_blocks = 3, 10
+        blocks = _pool_blocks(200 + trial, n_blocks, S, hw)
+        pool = BatchStreamingUpmixer(cfg, hw, n_streams=S)
+        outs = [pool.push_blocks(b[:, 0], b[:, 1]) for b in blocks]
+        for i in range(S):
+            c, ls, rs = (
+                np.concatenate([np.asarray(o[k][i]) for o in outs])
+                for k in range(3)
             )
-            if np.abs(want).max() > 0:
-                assert snr_db(want, got) > 80.0, (
-                    f"trial {trial} block {t} (edges={edges}, ov={overlap}, "
-                    f"hw={hw})"
-                )
-            else:
-                np.testing.assert_allclose(got, want, atol=1e-6)
-    assert eligible >= 3, f"only {eligible} eligible draws — fuzz too weak"
-
-
-def test_pallas_pool_spectral_matches_time():
-    # ola="spectral" carries the last Kr-1 frames' masked spectra and
-    # emits each output hop as ONE dot of the stacked spectra window
-    # against the rearranged inverse weight (ops/pallas_pool.py
-    # _spectral_bucket) — no [3PG, B] rec, no fold, no [S, B] carries.
-    # It must match the time-OLA pool to float tolerance (different
-    # summation order, same math) on BOTH history layouts, including
-    # warmup silence and slot churn; the two history layouts must agree
-    # bit-for-bit with each other.
-    from upmix_tpu.models.streaming import PallasStreamPool
-
-    cfg = _stream_cfg()
-    S, n_blocks = 16, 12
-    rng = np.random.default_rng(53)
-    blocks = rng.standard_normal((n_blocks, S, 2, HW)).astype(np.float32) * 0.3
-
-    t_pool = PallasStreamPool(cfg, HW, n_streams=S, group=8)
-    s_q = PallasStreamPool(cfg, HW, n_streams=S, group=8, ola="spectral")
-    s_w = PallasStreamPool(
-        cfg, HW, n_streams=S, group=8, ola="spectral", layout="window"
-    )
-    assert s_q.ola == "spectral" and s_q.plan.ola == "spectral"
-    for t in range(n_blocks):
-        if t == n_blocks // 2:
-            for p in (t_pool, s_q, s_w):
-                p.reset_streams([2, 9])
-        want = t_pool.push_blocks(blocks[t, :, 0], blocks[t, :, 1])
-        a = s_q.push_blocks(blocks[t, :, 0], blocks[t, :, 1])
-        b = s_w.push_blocks(blocks[t, :, 0], blocks[t, :, 1])
-        for x, y, z in zip(want, a, b):
-            np.testing.assert_allclose(
-                np.asarray(y), np.asarray(x), atol=2e-5, rtol=0
+            ref_l, ref_r = oracle_stream_multiband(
+                blocks[:, i, 0].reshape(-1), blocks[:, i, 1].reshape(-1),
+                cfg, hw,
             )
-            np.testing.assert_array_equal(np.asarray(y), np.asarray(z))
-        if t < s_q.warmup_blocks - 1:
-            assert np.abs(np.asarray(a[0])).max() == 0.0
+            msg = f"trial {trial} stream {i} (edges={edges}, ov={overlap}, hw={hw})"
+            assert snr_db(ref_l, ls + 0.5 * c) > 60.0, msg
+            assert snr_db(ref_r, rs + 0.5 * c) > 60.0, msg
 
 
-def test_pallas_pool_spectral_snapshot_and_cross_mode_guard():
-    # Same-mode snapshot/restore resumes bit-identically; restoring a
-    # spectral snapshot into a time pool (or vice versa) raises — the
-    # spectral carry is not derivable from time-domain OLA accumulators.
-    from upmix_tpu.models.streaming import PallasStreamPool
-
-    cfg = _stream_cfg()
-    S, n_blocks = 8, 8
-    rng = np.random.default_rng(59)
-    blocks = rng.standard_normal((n_blocks, S, 2, HW)).astype(np.float32) * 0.3
-
-    pool = PallasStreamPool(cfg, HW, n_streams=S, ola="spectral")
-    for blk in blocks[: n_blocks // 2]:
-        pool.push_blocks(blk[:, 0], blk[:, 1])
-    snap = pool.snapshot()
-    rest = [
-        pool.push_blocks(blk[:, 0], blk[:, 1])
-        for blk in blocks[n_blocks // 2 :]
-    ]
-
-    pool2 = PallasStreamPool(cfg, HW, n_streams=S, ola="spectral")
-    pool2.restore(snap)
-    rest2 = [
-        pool2.push_blocks(blk[:, 0], blk[:, 1])
-        for blk in blocks[n_blocks // 2 :]
-    ]
-    for (a, b, c), (x, y, z) in zip(rest, rest2):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(x))
-        np.testing.assert_array_equal(np.asarray(b), np.asarray(y))
-        np.testing.assert_array_equal(np.asarray(c), np.asarray(z))
-
-    t_pool = PallasStreamPool(cfg, HW, n_streams=S)
-    with pytest.raises(ValueError, match="OLA format"):
-        t_pool.restore(snap)
-    with pytest.raises(ValueError, match="OLA format"):
-        pool2.restore(t_pool.snapshot())
-
-
-def test_pallas_pool_spectral_nan_stream_isolation():
-    from upmix_tpu.models.streaming import PallasStreamPool
-
-    _nan_isolation_check(
-        lambda cfg: PallasStreamPool(
-            cfg, HW, n_streams=8, group=8, ola="spectral"
-        )
-    )
-
-
-def test_pallas_pool_spectral_random_config_fuzz():
-    # The spectral-OLA dataflow against the time-OLA pool over random
-    # pool-eligible configs: covers Kr=2 (50% overlap), sub-128-lane
-    # hops (Q>1 hop pairing), P==1 single-window buckets, and window
-    # slots that exactly fill the carry.
-    from upmix_tpu.models.streaming import PallasStreamPool
-    from upmix_tpu.ops.pallas_pool import make_pool_plan
-
-    rng = np.random.default_rng(991)
-    eligible = 0
-    for trial in range(8):
-        sr = float(rng.choice([8000, 16000]))
-        n_edges = int(rng.integers(1, 4))
-        edges = [0.0] + sorted(
-            float(f) for f in rng.uniform(sr * 0.02, sr * 0.4, size=n_edges)
-        )
-        overlap = float(rng.choice([0.5, 0.75]))
-        hw = int(rng.choice([128, 256]))
-        cfg = UpmixConfig.make(
-            edges, sr=sr, overlap=overlap, max_block_size=hw * 2,
-            synthesis="analysis", bin_rounding="cpp",
-        )
-        S = 8
-        if make_pool_plan(cfg, hw, S, group=8, ola="spectral") is None:
-            continue
-        eligible += 1
-        blocks = (
-            np.random.default_rng(300 + trial)
-            .standard_normal((6, S, 2, hw))
-            .astype(np.float32)
-            * 0.3
-        )
-        t_pool = PallasStreamPool(cfg, hw, n_streams=S, group=8)
-        s_pool = PallasStreamPool(
-            cfg, hw, n_streams=S, group=8, ola="spectral"
-        )
-        for t in range(6):
-            want = t_pool.push_blocks(blocks[t, :, 0], blocks[t, :, 1])
-            got = s_pool.push_blocks(blocks[t, :, 0], blocks[t, :, 1])
-            for x, y in zip(want, got):
-                np.testing.assert_allclose(
-                    np.asarray(y), np.asarray(x), atol=2e-5, rtol=0,
-                    err_msg=(
-                        f"trial {trial} block {t} (edges={edges}, "
-                        f"ov={overlap}, hw={hw})"
-                    ),
-                )
-    assert eligible >= 3, f"only {eligible} eligible draws — fuzz too weak"
-
-
-def test_pallas_pool_spectral_sharded():
-    # ola="spectral" composes with mesh sharding: the packed per-bucket
-    # spectral carry [S, 3*(Kr-1)*kp] shards over 'data' like every
-    # other leaf, and the per-shard plan matches the unsharded pool.
-    import jax as _jax
-
-    from upmix_tpu.models.streaming import PallasStreamPool
-
-    cfg = _stream_cfg()
-    S, n_blocks = 16, 8
-    mesh = _jax.sharding.Mesh(np.array(_jax.devices()[:2]), ("data",))
-    rng = np.random.default_rng(61)
-    blocks = rng.standard_normal((n_blocks, S, 2, HW)).astype(np.float32) * 0.3
-
-    plain = PallasStreamPool(cfg, HW, n_streams=S, group=8, ola="spectral")
-    shard = PallasStreamPool(
-        cfg, HW, n_streams=S, group=8, mesh=mesh, ola="spectral"
-    )
-    for t in range(n_blocks):
-        a = plain.push_blocks(blocks[t, :, 0], blocks[t, :, 1])
-        b = shard.push_blocks(blocks[t, :, 0], blocks[t, :, 1])
-        for x, y in zip(a, b):
-            np.testing.assert_allclose(
-                np.asarray(x), np.asarray(y), atol=1e-6, rtol=0
-            )
-
-
-@pytest.mark.parametrize(
-    "layout,ola",
-    [("quarters", "time"), ("window", "time"),
-     ("quarters", "spectral"), ("window", "spectral")],
-)
-def test_pallas_pool_restore_after_json_round_trip(layout, ola):
-    # restore() detects snapshot structure by SHAPE, not Python type: a
-    # JSON/msgpack round trip turns tuples into lists and arrays into
-    # nested lists, which must restore cleanly for EVERY layout/OLA
-    # combination (round-4 review found only time+quarters worked).
+@pytest.mark.parametrize("hw", [128, HW])
+@pytest.mark.parametrize("donate", [True, False])
+def test_batch_pool_restore_after_json_round_trip(hw, donate):
+    # A snapshot that went through JSON (arrays become nested lists)
+    # restores and resumes bit-identically, with and without donation.
     import json
 
-    from upmix_tpu.models.streaming import PallasStreamPool
+    from upmix.models.streaming import BatchStreamingUpmixer
 
-    hw = 128 if ola == "spectral" else HW  # spectral needs P >= Q
     cfg = _stream_cfg(hw=hw)
     S = 8
-    a = PallasStreamPool(cfg, hw, n_streams=S, layout=layout, ola=ola)
-    b = PallasStreamPool(cfg, hw, n_streams=S, layout=layout, ola=ola)
-    rng = np.random.default_rng(41)
-    blocks = rng.standard_normal((a.warmup_blocks + 4, S, 2, hw)).astype(
-        np.float32
-    )
+    a = BatchStreamingUpmixer(cfg, hw, n_streams=S, donate=donate)
+    b = BatchStreamingUpmixer(cfg, hw, n_streams=S, donate=donate)
+    blocks = _pool_blocks(41, a.warmup_blocks + 4, S, hw)
     k = a.warmup_blocks + 1
     for t in range(k):
         a.push_blocks(blocks[t, :, 0], blocks[t, :, 1])
@@ -1154,12 +666,13 @@ def test_pallas_pool_restore_after_json_round_trip(layout, ola):
     def to_lists(tree):
         if isinstance(tree, dict):
             return {kk: to_lists(v) for kk, v in tree.items()}
-        if isinstance(tree, (tuple, list)):
-            return [to_lists(v) for v in tree]
         return np.asarray(tree).tolist()
 
-    snap_json = json.loads(json.dumps(to_lists(a.snapshot())))
-    b.restore(snap_json)
+    snap = json.loads(json.dumps(to_lists(a.snapshot())))
+    b.restore({"history": np.asarray(snap["history"], np.float32),
+               "t": np.asarray(snap["t"], np.int32),
+               "ola": {kk: np.asarray(v, np.float32)
+                       for kk, v in snap["ola"].items()}})
     for t in range(k, len(blocks)):
         ra = a.push_blocks(blocks[t, :, 0], blocks[t, :, 1])
         rb = b.push_blocks(blocks[t, :, 0], blocks[t, :, 1])
@@ -1167,25 +680,24 @@ def test_pallas_pool_restore_after_json_round_trip(layout, ola):
         np.testing.assert_array_equal(np.asarray(y), np.asarray(x))
 
 
-@pytest.mark.parametrize("engine", ["pallas", "xla"])
+@pytest.mark.parametrize("engine", ["mesh", "xla"])
 def test_sustained_runner_matches_push_blocks(engine):
     # make_sustained_runner chains n_blocks steps in ONE compiled
-    # program (the chip-side capacity protocol, used by tune.py's scan
+    # program (the device-side capacity protocol, used by tune.py's scan
     # mode); its per-iteration C outputs must match the dispatched
-    # push_blocks path on the same inputs.
-    from upmix_tpu.models.streaming import (
-        BatchStreamingUpmixer,
-        PallasStreamPool,
-    )
+    # push_blocks path on the same inputs, sharded or not.
+    import jax as _jax
+
+    from upmix.models.streaming import BatchStreamingUpmixer
 
     cfg = _stream_cfg()
     S, n_blocks, unroll = 8, 12, 4
     rng = np.random.default_rng(7)
     blocks = rng.standard_normal((n_blocks, 2, S, HW)).astype(np.float32) * 0.3
-    if engine == "pallas":
-        pool = PallasStreamPool(cfg, HW, n_streams=S, group=8)
-    else:
-        pool = BatchStreamingUpmixer(cfg, HW, n_streams=S, donate=False)
+    mesh = None
+    if engine == "mesh":
+        mesh = _jax.sharding.Mesh(np.array(_jax.devices()[:2]), ("data",))
+    pool = BatchStreamingUpmixer(cfg, HW, n_streams=S, donate=False, mesh=mesh)
     want = []
     for t in range(n_blocks):
         c, _, _ = pool.push_blocks(blocks[t, 0], blocks[t, 1])
@@ -1202,7 +714,7 @@ def test_sustained_runner_matches_push_blocks(engine):
 
 
 def test_sustained_runner_clamps_unroll_to_divisor():
-    from upmix_tpu.models.streaming import BatchStreamingUpmixer
+    from upmix.models.streaming import BatchStreamingUpmixer
 
     cfg = _stream_cfg()
     pool = BatchStreamingUpmixer(cfg, HW, n_streams=2)

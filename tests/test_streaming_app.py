@@ -7,9 +7,9 @@ import sys
 import numpy as np
 import pytest
 
-from upmix_tpu.app import run_streaming
-from upmix_tpu.config import streaming_stft_table
-from upmix_tpu.io import read_wav, write_wav
+from upmix.app import run_streaming
+from upmix.config import streaming_stft_table
+from upmix.io import read_wav, write_wav
 
 from helpers import make_stereo
 
@@ -38,7 +38,7 @@ def test_run_streaming_jax(wav_path, tmp_path):
 
 
 def test_run_streaming_native_matches_jax(wav_path, tmp_path):
-    native = pytest.importorskip("upmix_tpu.native")
+    native = pytest.importorskip("upmix.native")
     if not native.is_available():
         pytest.skip("native lib not built")
     a = run_streaming(
@@ -103,7 +103,7 @@ def test_streaming_stft_table():
 
 
 def test_cli_streaming(wav_path, tmp_path):
-    from upmix_tpu.cli import main
+    from upmix.cli import main
 
     rc = main(
         [
@@ -125,7 +125,7 @@ def test_cli_streaming(wav_path, tmp_path):
 
 def test_cli_upmixer_cache_reuse(tmp_path):
     # Two same-rate files must share one Upmixer via the cache.
-    from upmix_tpu.app import run_offline
+    from upmix.app import run_offline
 
     sr = 8000
     paths = []
@@ -152,7 +152,7 @@ def test_cli_upmixer_cache_reuse(tmp_path):
 def test_upmixer_cache_config_keyed(tmp_path):
     # A shared cache must NOT reuse an Upmixer across differing configs
     # (round-1 advisor finding: it was keyed by sample rate only).
-    from upmix_tpu.app import run_offline
+    from upmix.app import run_offline
 
     sr = 8000
     L, R = make_stereo(2000, float(sr), seed=0)
@@ -170,7 +170,7 @@ def test_upmixer_cache_config_keyed(tmp_path):
 
 def test_demo_entry(tmp_path, wav_path):
     pytest.importorskip("matplotlib")
-    from upmix_tpu.demo import run_demo
+    from upmix.demo import run_demo
 
     win_png, cmp_png = run_demo(
         wav_path, out_dir=tmp_path / "demo", band_edges=[0.0, 400.0, 1600.0]
@@ -188,8 +188,8 @@ def _cpu_child_env():
 def _pipe_reference(L32, R32, sr, hw, edges):
     """Aligned reference: raw stream over input + warmup-1 zero blocks,
     shifted left by the (warmup-1)*hw engine latency, trimmed to len."""
-    from upmix_tpu.config import UpmixConfig
-    from upmix_tpu.models.streaming import StreamingUpmixer
+    from upmix.config import UpmixConfig
+    from upmix.models.streaming import StreamingUpmixer
 
     cfg = UpmixConfig.streaming(edges, sr=float(sr), hw_block_size=hw)
     s = StreamingUpmixer(cfg, hw)
@@ -215,7 +215,7 @@ def test_pipe_mode_matches_streaming_engine():
 
     proc = subprocess.run(
         [
-            sys.executable, "-m", "upmix_tpu.cli", "-",
+            sys.executable, "-m", "upmix.cli", "-",
             "--pipe", "--sr", str(sr), "--hw-block", str(hw),
             "--band-edges", "0,400,1600",
         ],
@@ -237,9 +237,9 @@ def test_pipe_raw_mode_and_short_reads():
     # mistaken for EOF.
     import io
 
-    from upmix_tpu.app import run_pipe
-    from upmix_tpu.config import UpmixConfig
-    from upmix_tpu.models.streaming import StreamingUpmixer
+    from upmix.app import run_pipe
+    from upmix.config import UpmixConfig
+    from upmix.models.streaming import StreamingUpmixer
 
     sr, hw = 8000, 256
     n = 5 * hw
@@ -290,7 +290,7 @@ def test_pipe_broken_downstream_exits_quietly(tmp_path):
     raw_path.write_bytes(np.column_stack([L, R]).astype("<f4").tobytes())
     err_path = tmp_path / "err.txt"
     cmd = (
-        f"set -o pipefail; {sys.executable} -m upmix_tpu.cli - --pipe "
+        f"set -o pipefail; {sys.executable} -m upmix.cli - --pipe "
         f"--sr {sr} --hw-block {hw} --band-edges 0,400,1600 "
         f"< {raw_path} 2> {err_path} | head -c 64 > /dev/null"
     )

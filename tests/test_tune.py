@@ -1,5 +1,5 @@
-"""Serving-pool autotuner tests (upmix_tpu/tune.py): the sweep must
-measure every feasible (batch, group) candidate with the interleaved
+"""Autotuner tests (upmix/tune.py): the pool sweep must measure
+every feasible batch-size candidate with the interleaved
 min-of-visits protocol, record infeasible ones with their error, and
 pick the capacity-best feasible candidate.  Run tiny on the CPU
 backend; the protocol is identical on hardware."""
@@ -7,8 +7,8 @@ backend; the protocol is identical on hardware."""
 import numpy as np
 import pytest
 
-from upmix_tpu.config import UpmixConfig
-from upmix_tpu.tune import tune_pool
+from upmix.config import UpmixConfig
+from upmix.tune import tune_pool
 
 HW = 256
 SR = 8000.0
@@ -21,11 +21,10 @@ def _cfg():
 
 def test_tune_xla_sweep_picks_best():
     report = tune_pool(
-        _cfg(), HW, batch_sizes=(2, 4), groups=(2,), engine="xla",
-        blocks=2, visits=2, verbose=False,
+        _cfg(), HW, batch_sizes=(2, 4), blocks=2, visits=2, verbose=False,
     )
     ok = [r for r in report["results"] if r["ok"]]
-    assert len(ok) == 2  # one XLA candidate per batch (group ignored)
+    assert len(ok) == 2  # one candidate per batch
     best = report["best"]
     assert best is not None and best in report["results"]
     for r in ok:
@@ -41,49 +40,27 @@ def test_tune_xla_sweep_picks_best():
     assert report["protocol"]["transport_floor_seconds"] > 0
 
 
-def test_tune_skips_indivisible_groups():
-    report = tune_pool(
-        _cfg(), HW, batch_sizes=(4,), groups=(3, 8), engine="pallas",
-        blocks=1, visits=1, verbose=False,
-    )
-    # 4 % 3 != 0 and 4 % 8 != 0: nothing to measure.
-    assert report["results"] == []
-    assert report["best"] is None
-
-
 def test_tune_records_failures_without_raising():
+    # A pool that cannot be built (0 streams) is recorded with its
+    # error; the feasible candidate still measures and wins.
     report = tune_pool(
-        _cfg(), HW, batch_sizes=(2,), groups=(2,), engine="bogus",
-        blocks=1, visits=1, verbose=False,
+        _cfg(), HW, batch_sizes=(0, 2), blocks=1, visits=1, verbose=False,
     )
-    assert report["best"] is None
-    (rec,) = report["results"]
-    assert rec["ok"] is False
-    assert "ValueError" in rec["error"]
-
-
-def test_tune_pallas_candidate_on_cpu():
-    # The pallas pool runs in interpret mode on CPU — slow but exact;
-    # one tiny candidate proves the pallas arm of the sweep end-to-end
-    # (group 8 is the smallest lane-eligible grid group).
-    report = tune_pool(
-        _cfg(), HW, batch_sizes=(8,), groups=(8,), engine="pallas",
-        blocks=1, visits=1, verbose=False,
-    )
-    best = report["best"]
-    assert best is not None and best["engine"] == "pallas"
-    assert best["group"] == 8 and best["batch"] == 8
+    bad, good = report["results"]
+    assert bad["ok"] is False
+    assert "ValueError" in bad["error"]
+    assert good["ok"] and report["best"] is good
 
 
 def test_tune_cli_json(capsys):
     import json
 
-    from upmix_tpu.tune import main
+    from upmix.tune import main
 
     rc = main([
         "--sr", str(SR), "--hw-block", str(HW),
-        "--edges", "0,400,1600", "--batches", "2", "--groups", "2",
-        "--engine", "xla", "--blocks", "1", "--visits", "1", "--json",
+        "--edges", "0,400,1600", "--batches", "2",
+        "--blocks", "1", "--visits", "1", "--json",
     ])
     assert rc == 0
     line = capsys.readouterr().out.strip().splitlines()[-1]
@@ -92,42 +69,24 @@ def test_tune_cli_json(capsys):
 
 
 def test_tune_xla_one_candidate_per_batch():
-    # group is a pallas-only knob: --engine xla with 3 group values must
-    # NOT time the same pool three times under G-labels.
     report = tune_pool(
-        _cfg(), HW, batch_sizes=(2,), groups=(2, 4, 8), engine="xla",
-        blocks=1, visits=1, verbose=False,
+        _cfg(), HW, batch_sizes=(2,), blocks=1, visits=1, verbose=False,
     )
-    assert len(report["results"]) == 1
     (rec,) = report["results"]
-    assert rec["ok"] and rec["group"] is None and "/G" not in rec["label"]
-
-
-def test_tune_auto_dedupes_groupless_resolution():
-    # engine='auto' on the CPU backend resolves to the XLA pool, which
-    # ignores group — only the first group per batch is timed; the rest
-    # are recorded as duplicates, not measured again.
-    report = tune_pool(
-        _cfg(), HW, batch_sizes=(2,), groups=(1, 2), engine="auto",
-        blocks=1, visits=1, verbose=False,
-    )
-    ok = [r for r in report["results"] if r["ok"]]
-    dup = [r for r in report["results"] if r["error"]
-           and "duplicate" in r["error"]]
-    assert len(ok) == 1 and len(dup) == 1
+    assert rec["ok"] and rec["label"] == "B2" and rec["pipeline"] == 1
 
 
 def test_tune_cli_json_exit_code_on_total_failure(capsys):
     import json
 
-    from upmix_tpu.tune import main
+    from upmix.tune import main
 
-    # batch 4 indivisible by group 3 -> no candidates at all; the
-    # scripted (--json) path must exit nonzero like the human path.
+    # No buildable candidate at all: the scripted (--json) path must
+    # exit nonzero like the human path.
     rc = main([
         "--sr", str(SR), "--hw-block", str(HW),
-        "--edges", "0,400,1600", "--batches", "4", "--groups", "3",
-        "--engine", "pallas", "--blocks", "1", "--visits", "1", "--json",
+        "--edges", "0,400,1600", "--batches", "0",
+        "--blocks", "1", "--visits", "1", "--json",
     ])
     assert rc == 1
     line = capsys.readouterr().out.strip().splitlines()[-1]
@@ -135,11 +94,11 @@ def test_tune_cli_json_exit_code_on_total_failure(capsys):
 
 
 def test_tune_scan_protocol_xla():
-    # scan protocol: one-dispatch chained steps per visit (chip-side
+    # scan protocol: one-dispatch chained steps per visit (device-side
     # capacity); must resolve a best candidate and label the protocol.
     report = tune_pool(
-        _cfg(), HW, batch_sizes=(2, 4), groups=(2,), engine="xla",
-        blocks=4, visits=2, protocol="scan", unroll=2, verbose=False,
+        _cfg(), HW, batch_sizes=(2, 4), blocks=4, visits=2,
+        protocol="scan", unroll=2, verbose=False,
     )
     ok = [r for r in report["results"] if r["ok"]]
     assert len(ok) == 2
@@ -150,73 +109,27 @@ def test_tune_scan_protocol_xla():
         assert r["seconds_per_block"] > 0
 
 
-def test_tune_scan_protocol_pallas_interpret():
-    report = tune_pool(
-        _cfg(), HW, batch_sizes=(8,), groups=(8,), engine="pallas",
-        blocks=2, visits=1, protocol="scan", unroll=2, verbose=False,
-    )
-    best = report["best"]
-    assert best is not None and best["engine"] == "pallas"
-    assert best["group"] == 8
-
-
 def test_tune_rejects_unknown_protocol():
     with pytest.raises(ValueError):
         tune_pool(_cfg(), HW, protocol="bogus")
 
 
-def test_tune_hops_sweep_scan_pallas():
-    # Temporal batching knob: hops=2 candidates run 2 blocks per kernel
-    # launch (make_sustained_runner(hops=2)); both depths must measure
-    # and the multi-hop one must carry the /T label.
+@pytest.mark.parametrize("protocol", ["dispatch", "scan", "lockstep"])
+def test_tune_report_shape_per_protocol(protocol):
+    # Every protocol reports the same per-candidate fields and its own
+    # protocol block; unroll is a scan-only field.
     report = tune_pool(
-        _cfg(), HW, batch_sizes=(8,), groups=(8,), engine="pallas",
-        blocks=2, visits=1, protocol="scan", unroll=1, hops=(1, 2),
-        verbose=False,
-    )
-    ok = [r for r in report["results"] if r["ok"]]
-    assert len(ok) == 2
-    assert {r["hops"] for r in ok} == {1, 2}
-    (t2,) = [r for r in ok if r["hops"] == 2]
-    assert t2["label"].endswith("/T2")
-    assert report["protocol"]["hops"] == [1, 2]
-    assert report["best"] is not None
-
-
-def test_tune_hops_dispatch_uses_push_blocks_multi():
-    # dispatch protocol at hops=2: blocks are timed through
-    # push_blocks_multi, 2 blocks per call; per-BLOCK normalization.
-    report = tune_pool(
-        _cfg(), HW, batch_sizes=(8,), groups=(8,), engine="pallas",
-        blocks=2, visits=1, protocol="dispatch", hops=(2,),
-        verbose=False,
+        _cfg(), HW, batch_sizes=(2,), blocks=2, visits=1,
+        protocol=protocol, verbose=False,
     )
     (rec,) = report["results"]
-    assert rec["ok"] and rec["hops"] == 2 and rec["label"].endswith("/T2")
-    assert rec["seconds_per_block"] > 0
-
-
-def test_tune_hops_infeasible_on_xla_resolution():
-    # engine='auto' resolves to the XLA pool on CPU, which has no
-    # multi-hop kernel: a hops>1 candidate is recorded infeasible, not
-    # raised and not silently dropped.
-    report = tune_pool(
-        _cfg(), HW, batch_sizes=(2,), groups=(1,), engine="auto",
-        blocks=2, visits=1, hops=(2,), verbose=False,
-    )
-    assert report["best"] is None
-    (rec,) = report["results"]
-    assert rec["ok"] is False and "multi-hop" in rec["error"]
-
-
-def test_tune_hops_must_divide_blocks():
-    # A depth that doesn't divide the visit length can't run whole
-    # slabs; it is skipped like an indivisible group.
-    report = tune_pool(
-        _cfg(), HW, batch_sizes=(8,), groups=(8,), engine="pallas",
-        blocks=3, visits=1, hops=(2,), verbose=False,
-    )
-    assert report["results"] == [] and report["best"] is None
+    assert rec["ok"] and rec["error"] is None
+    assert set(rec) >= {"batch", "pipeline", "label", "seconds_per_block",
+                        "us_per_block_stream", "streams_per_chip"}
+    assert "visits" not in rec
+    proto = report["protocol"]
+    assert proto["name"] == protocol and proto["blocks"] == 2
+    assert (proto["unroll"] is None) == (protocol != "scan")
 
 
 def test_tune_lockstep_protocol_xla():
@@ -224,8 +137,8 @@ def test_tune_lockstep_protocol_xla():
     # cycle (the stream server's dispatcher cost model,
     # serve_stream.py) — the transfers belong in the timed region.
     report = tune_pool(
-        _cfg(), HW, batch_sizes=(2, 4), groups=(2,), engine="xla",
-        blocks=2, visits=2, protocol="lockstep", verbose=False,
+        _cfg(), HW, batch_sizes=(2, 4), blocks=2, visits=2,
+        protocol="lockstep", verbose=False,
     )
     ok = [r for r in report["results"] if r["ok"]]
     assert len(ok) == 2
@@ -235,42 +148,25 @@ def test_tune_lockstep_protocol_xla():
         assert r["seconds_per_block"] > 0
 
 
-def test_tune_lockstep_hops_pallas_interpret():
-    # The knob lockstep exists to resolve: hops=T candidates run whole
-    # T-block cycles through push_blocks_multi with every output
-    # fetched before the next cycle.
-    report = tune_pool(
-        _cfg(), HW, batch_sizes=(8,), groups=(8,), engine="pallas",
-        blocks=2, visits=1, protocol="lockstep", hops=(1, 2),
-        verbose=False,
-    )
-    ok = [r for r in report["results"] if r["ok"]]
-    assert {r["hops"] for r in ok} == {1, 2}
-    (t2,) = [r for r in ok if r["hops"] == 2]
-    assert t2["label"].endswith("/T2")
-
-
-def test_tune_hops_window_layout_records_rejection():
-    # The window layout re-shifts history per hop and rejects hops>1;
-    # the tuner records that as a candidate failure.
-    report = tune_pool(
-        _cfg(), HW, batch_sizes=(8,), groups=(8,), engine="pallas",
-        layout="window", blocks=2, visits=1, protocol="scan",
-        unroll=1, hops=(2,), verbose=False,
-    )
-    (rec,) = report["results"]
-    assert rec["ok"] is False and "quarters" in rec["error"]
-
-
-def test_tune_lockstep_pipeline_sweep_shares_pool():
+def test_tune_lockstep_pipeline_sweep_shares_pool(monkeypatch):
     # pipeline=2 candidates time the SAME pool with the pipelined fetch
     # schedule (park cycle N's outputs, fetch after dispatching N+1) —
     # the build is shared, both depths are measured, labels carry /P2.
+    import upmix.models.streaming as streaming
+
+    builds = []
+    real = streaming.make_stream_pool
+
+    def counting(*a, **k):
+        builds.append(a)
+        return real(*a, **k)
+
+    monkeypatch.setattr(streaming, "make_stream_pool", counting)
     report = tune_pool(
-        _cfg(), HW, batch_sizes=(4,), groups=(2,), engine="xla",
-        blocks=4, visits=2, protocol="lockstep", pipelines=(1, 2),
-        verbose=False,
+        _cfg(), HW, batch_sizes=(4,), blocks=4, visits=2,
+        protocol="lockstep", pipelines=(1, 2), verbose=False,
     )
+    assert len(builds) == 1
     ok = [r for r in report["results"] if r["ok"]]
     assert {r["pipeline"] for r in ok} == {1, 2}
     (p2,) = [r for r in ok if r["pipeline"] == 2]
@@ -285,27 +181,15 @@ def test_tune_pipeline_rejected_off_lockstep():
     # are already async-pipelined by jax dispatch, so a depth sweep
     # there would silently measure nothing.
     with pytest.raises(ValueError, match="lockstep"):
-        tune_pool(_cfg(), HW, batch_sizes=(4,), engine="xla",
+        tune_pool(_cfg(), HW, batch_sizes=(4,),
                   protocol="dispatch", pipelines=(1, 2), verbose=False)
     with pytest.raises(ValueError, match="1 or 2"):
-        tune_pool(_cfg(), HW, batch_sizes=(4,), engine="xla",
+        tune_pool(_cfg(), HW, batch_sizes=(4,),
                   protocol="lockstep", pipelines=(3,), verbose=False)
 
 
-def test_tune_rejects_bad_hops_values():
-    # hops=0 used to ZeroDivisionError in the divisibility check and a
-    # negative depth timed an empty loop (a near-zero "winner").
-    for bad in ((0,), (-2,), ()):
-        with pytest.raises(ValueError, match="hops"):
-            tune_pool(
-                _cfg(), HW, batch_sizes=(8,), groups=(8,),
-                engine="pallas", blocks=4, visits=1, hops=bad,
-                verbose=False,
-            )
-
-
 def test_tune_offline_sweep():
-    from upmix_tpu.tune import tune_offline
+    from upmix.tune import tune_offline
 
     report = tune_offline(
         sr=8000.0, band_edges=(0.0, 400.0, 1600.0), max_block_size=512,
@@ -326,7 +210,7 @@ def test_tune_offline_sweep():
 
 
 def test_tune_offline_chunk_rounds_to_frame_grid():
-    from upmix_tpu.tune import tune_offline
+    from upmix.tune import tune_offline
 
     # A chunk below the frame-grid unit is rounded up by the builder
     # (models/offline.py), not rejected: still a feasible candidate.
@@ -340,7 +224,7 @@ def test_tune_offline_chunk_rounds_to_frame_grid():
 
 
 def test_tune_offline_records_infeasible():
-    from upmix_tpu.tune import tune_offline
+    from upmix.tune import tune_offline
 
     # Every candidate failing (unknown kernel) is recorded with its
     # error, not raised, and best is None.
@@ -355,7 +239,7 @@ def test_tune_offline_records_infeasible():
 
 
 def test_tune_offline_cli_json(capsys):
-    from upmix_tpu.tune import main
+    from upmix.tune import main
 
     rc = main([
         "--offline", "--sr", "8000", "--edges", "0,400,1600",
@@ -374,7 +258,7 @@ def test_tune_offline_inactive_chunking_dedupes():
     # whole-file program, so only one builds and the rest are recorded
     # as duplicates (review finding: ranking noise between copies of one
     # program is not a sweep).
-    from upmix_tpu.tune import tune_offline
+    from upmix.tune import tune_offline
 
     report = tune_offline(
         sr=8000.0, band_edges=(0.0, 400.0, 1600.0), max_block_size=512,
@@ -391,7 +275,7 @@ def test_tune_offline_inactive_chunking_dedupes():
 def test_tune_offline_clamped_chunks_deduped():
     # Chunks >= the input length all clamp to "whole input, one scan
     # step": only the first is distinct, later ones are duplicates.
-    from upmix_tpu.tune import tune_offline
+    from upmix.tune import tune_offline
 
     report = tune_offline(
         sr=8000.0, band_edges=(0.0, 400.0, 1600.0), max_block_size=512,

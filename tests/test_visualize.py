@@ -8,8 +8,8 @@ The reference renders the WOLA invariant as a plot to eyeball
 import numpy as np
 import pytest
 
-from upmix_tpu.ops.windows import design_wola_synthesis_window, make_blackman_harris
-from upmix_tpu.visualize import (
+from upmix.ops.windows import design_wola_synthesis_window, make_blackman_harris
+from upmix.visualize import (
     compare_upmix_vs_original,
     comparison_arrays,
     overlapped_window_sums,

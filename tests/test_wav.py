@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from upmix_tpu.io import read_wav, write_wav
+from upmix.io import read_wav, write_wav
 
 
 @pytest.mark.parametrize(
@@ -115,7 +115,7 @@ def test_odd_sized_data_chunk_alignment(tmp_path):
 
 
 def test_non_wav_error_mentions_soundfile(tmp_path, monkeypatch):
-    from upmix_tpu.io import wav as wavmod
+    from upmix.io import wav as wavmod
 
     p = tmp_path / "x.flac"
     p.write_bytes(b"fLaC" + b"\x00" * 64)
@@ -156,7 +156,7 @@ class _FakeSoundfile:
 
 def _soundfile_or_fake(monkeypatch):
     """Real soundfile when installed and functional, else the fake wired in."""
-    from upmix_tpu.io import wav as wavmod
+    from upmix.io import wav as wavmod
 
     try:
         import soundfile as sf
@@ -198,7 +198,7 @@ def test_non_wav_mono_always_2d_via_soundfile(tmp_path, monkeypatch):
 def test_soundfile_decode_failure_wrapped_as_valueerror(tmp_path, monkeypatch):
     # A file soundfile itself cannot decode must surface as the documented
     # ValueError("unreadable audio file"), never a raw backend exception.
-    from upmix_tpu.io import wav as wavmod
+    from upmix.io import wav as wavmod
 
     monkeypatch.setattr(wavmod, "_sf", _FakeSoundfile())
     p = tmp_path / "mystery.ogg"

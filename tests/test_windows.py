@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from upmix_tpu.config import EPS
-from upmix_tpu.ops.windows import (
+from upmix.config import EPS
+from upmix.ops.windows import (
     design_wola_synthesis_window,
     make_blackman,
     make_blackman_harris,
